@@ -1,21 +1,17 @@
-"""Driver eval configs #2-#5 (BASELINE.json "configs"; VERDICT r1 item 3).
+"""Eval configs #2-#5 (BASELINE.json "configs").
 
-Each config prints ONE JSON line and appends it to BENCH_configs.json:
+Each config prints ONE JSON line naming the devices it ran on:
 
-  config2: 5-map ~500k-pt all-pairs merge, 1 TPU chip (grid engine)
-  config3: 1000-hypothesis RANSAC registration on a ~2M-pt LiDAR-style map
-  config4: 20-map merge graph on the 8-device virtual CPU mesh
-           (wall-clock + 1->8 device scaling efficiency).
-           NOTE: the first run on a fresh host pays a very long XLA:CPU
-           compile of the sharded pair programs (measured ~1-2 h on a
-           2-core host; progress prints mark the phases). The persistent
-           cache (/tmp/jaxcache-cpu) is machine-specific — entries from a
-           different CPU type fail to load (AOT feature mismatch) and
-           everything recompiles.
-  config5: 50-map online stream through MapMergeNode
+  config1_pfh: the bench.py pair at the reference's default SIFT+PFH-125
+  config2:     5-map ~500k-pt all-pairs merge, 1 chip (grid engine)
+  config3:     1000-hypothesis RANSAC registration on a ~2M-pt LiDAR-style map
+  config5:     50-map online stream through MapMergeNode
+  config5_big: 50 x ~500k-pt maps streamed through the incremental node
 
-Every config carries an accuracy gate (bench.py:84-93 pattern): a fast
-wrong answer fails the run.
+Every config carries an accuracy gate (the bench.py pattern): a fast wrong
+answer fails the run. Every config runs on the GPU only and in this one
+process. The 20-map mesh fixture (bench_fixtures.config4_fixture) is run
+by `chip_smoke.py --four`.
 
 Usage: python bench_configs.py config2 [config3 ...]   (no args = all)
 """
@@ -23,102 +19,25 @@ Usage: python bench_configs.py config2 [config3 ...]   (no args = all)
 from __future__ import annotations
 
 import json
-import os
 import sys
 import time
 
 import numpy as np
 
-from mapmerge_tpu.utils.profiling import device_sync
-
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
-
-_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "BENCH_configs.json")
+from bench_fixtures import (
+    big_params,
+    check_chain,
+    check_golden,
+    pose_err,
+    require_gpu,
+    stream_params,
+    town_views,
+)
 
 
 def emit(record: dict) -> None:
-    import fcntl
-
-    line = json.dumps(record)
-    print(line, flush=True)
-    # exclusive lock around the read-modify-write: configs may run from
-    # concurrent processes (CPU mesh configs compile for a long time while
-    # TPU configs run) and must not lose each other's lines
-    with open(_OUT + ".lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        rows = []
-        if os.path.exists(_OUT):
-            with open(_OUT) as f:
-                rows = [json.loads(l) for l in f if l.strip()]
-        rows = [r for r in rows if r.get("config") != record.get("config")]
-        rows.append(record)
-        with open(_OUT, "w") as f:
-            for r in rows:
-                f.write(json.dumps(r) + "\n")
-
-
-def _pose_err(rel, truth):
-    from mapmerge_tpu.core import transforms as tf
-
-    rot = float(tf.rotation_geodesic_deg(rel.astype(np.float32), truth))
-    trans = float(np.linalg.norm(rel[:3, 3] - truth[:3, 3]))
-    return rot, trans
-
-
-def town_views(n_maps: int, view_resized_target: int, keep: float = 0.6,
-               seed: int = 42):
-    """N overlapping views of one make_town scene with known SE(3) truths.
-
-    `view_resized_target` ~ registration-resolution points per view."""
-    from synthetic import make_town, n_overlapping_views, rotation_z, se3
-
-    rng = np.random.default_rng(seed)
-    xyz, rgb = make_town(rng, int(view_resized_target / keep))
-    truths = [
-        np.eye(4, dtype=np.float32)
-        if i == 0
-        else se3(
-            rotation_z(0.15 * ((i % 7) - 3)),
-            [0.6 * (i % 5), -0.3 * (i % 4), 0.04 * (i % 3)],
-        )
-        for i in range(n_maps)
-    ]
-    views = n_overlapping_views(rng, xyz, rgb, truths, keep=keep)
-    return views, truths
-
-
-def subsample(x, r, cap: int, seed: int = 0):
-    """Uniform random subsample to `cap` (head-truncation is spatially
-    biased — make_scene emits the floor first)."""
-    if len(x) <= cap:
-        return x, r
-    keep = np.random.default_rng(seed).choice(len(x), cap, replace=False)
-    keep.sort()
-    return x[keep], None if r is None else r[keep]
-
-
-def check_chain(transforms, truths, rot_tol, trans_tol, min_ok=None):
-    """Accuracy gate: relative poses (vs the first successfully-registered
-    map as anchor) must match the ground-truth relative poses."""
-    ok_idx = [
-        i for i in range(min(len(transforms), len(truths)))
-        if np.asarray(transforms[i]).any()
-    ]
-    need = min_ok if min_ok is not None else len(truths)
-    assert ok_idx, "accuracy gate: no map registered at all"
-    a = ok_idx[0]
-    inv_ta = np.linalg.inv(transforms[a])
-    inv_truth_a = np.linalg.inv(truths[a])
-    n_ok, errs = 0, []
-    for i in ok_idx:
-        rel = inv_ta @ transforms[i]
-        truth_rel = inv_truth_a @ truths[i]
-        rot, trans = _pose_err(rel, truth_rel.astype(np.float32))
-        errs.append((rot, trans))
-        if rot < rot_tol and trans < trans_tol:
-            n_ok += 1
-    assert n_ok >= need, f"accuracy gate: only {n_ok}/{len(truths)} maps ok ({errs})"
-    return errs
+    record.update(require_gpu())
+    print(json.dumps(record), flush=True)
 
 
 def check_adjacent(transforms, truths, rot_tol, trans_tol, min_ok):
@@ -134,7 +53,7 @@ def check_adjacent(transforms, truths, rot_tol, trans_tol, min_ok):
             continue
         rel = np.linalg.inv(ta) @ tb
         truth_rel = np.linalg.inv(truths[i]) @ truths[i + 1]
-        rot, trans = _pose_err(rel, truth_rel.astype(np.float32))
+        rot, trans = pose_err(rel, truth_rel.astype(np.float32))
         errs.append((rot, trans))
         if rot < rot_tol and trans < trans_tol:
             n_ok += 1
@@ -142,28 +61,6 @@ def check_adjacent(transforms, truths, rot_tol, trans_tol, min_ok):
         f"adjacent-pair gate: only {n_ok} pairs ok ({errs[:8]}...)"
     )
     return errs
-
-
-def _per_map_errors(transforms, truths):
-    """Relative pose error of each map vs truth, anchored at the first
-    registered map: list of (rot_deg, trans_m) or None (unregistered)."""
-    ok = [i for i in range(len(truths)) if np.asarray(transforms[i]).any()]
-    if not ok:
-        return [None] * len(truths)
-    a = ok[0]
-    inv_ta = np.linalg.inv(transforms[a])
-    inv_truth_a = np.linalg.inv(truths[a])
-    out = []
-    for i in range(len(truths)):
-        if i not in ok:
-            out.append(None)
-            continue
-        rot, trans = _pose_err(
-            inv_ta @ transforms[i],
-            (inv_truth_a @ truths[i]).astype(np.float32),
-        )
-        out.append((round(rot, 2), round(trans, 3)))
-    return out
 
 
 def end_to_end_drift(transforms, truths):
@@ -176,29 +73,12 @@ def end_to_end_drift(transforms, truths):
     inv_truth_a = np.linalg.inv(truths[a])
     worst = (0.0, 0.0)
     for i in ok:
-        rot, trans = _pose_err(
+        rot, trans = pose_err(
             inv_ta @ transforms[i],
             (inv_truth_a @ truths[i]).astype(np.float32),
         )
         worst = max(worst, (rot, trans))
     return [round(worst[0], 2), round(worst[1], 3)]
-
-
-def _big_params(max_points, engine="auto"):
-    from mapmerge_tpu.core.params import MergeParams
-
-    return MergeParams(
-        keypoint_type="HARRIS",
-        keypoint_threshold=5.0,
-        descriptor_type="FPFH",
-        refine_transform=True,
-        max_iterations=40,
-        max_points=max_points,
-        max_keypoints=1024,
-        max_neighbors=48,
-        ransac_hypotheses=1024,
-        neighbor_engine=engine,
-    )
 
 
 def config1_pfh():
@@ -207,22 +87,16 @@ def config1_pfh():
     headline bench (bench.py) runs FPFH; this line shows what the
     reference's own defaults cost on the same 50k-pt pair (VERDICT r4
     missing 6). Same fixture, same gates, descriptor swapped."""
-    import jax
-
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jaxcache")
     from bench import build_views, bench_params
-    from mapmerge_tpu.core import transforms as tf
     from mapmerge_tpu.pipeline.merging import estimate_maps_transforms
 
     va, vb, truth = build_views()
     params = bench_params().replace(descriptor_type="PFH")
 
     transforms = estimate_maps_transforms([va, vb], params, seed=0)  # warm
-    rel = np.linalg.inv(transforms[0]) @ transforms[1]
-    rot_err = float(
-        tf.rotation_geodesic_deg(rel.astype(np.float32), truth.astype(np.float32))
+    rot_err, trans_err = pose_err(
+        np.linalg.inv(transforms[0]) @ transforms[1], truth
     )
-    trans_err = float(np.linalg.norm(rel[:3, 3] - truth[:3, 3]))
     assert rot_err < 1.0 and trans_err < 0.1, (
         f"accuracy gate failed: rot {rot_err} deg, trans {trans_err} m"
     )
@@ -236,7 +110,7 @@ def config1_pfh():
         {
             "config": "config1_pfh_reference_default",
             "metric": "50k-pt pair end-to-end at the reference's DEFAULT "
-            "operating point (SIFT+PFH-125), 1 TPU chip, median of 5",
+            "operating point (SIFT+PFH-125), 1 chip, median of 5",
             "value": round(1.0 / med, 4),
             "unit": "pairs/s",
             "median_s": round(med, 4),
@@ -249,9 +123,6 @@ def config1_pfh():
 
 def config2():
     """5-map ~500k-pt all-pairs merge on one chip (grid engine)."""
-    import jax
-
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jaxcache")
     from mapmerge_tpu.core.cloud import PointCloud
     from mapmerge_tpu.pipeline.merging import estimate_maps_transforms
 
@@ -261,10 +132,9 @@ def config2():
     clouds = [PointCloud.from_arrays(x, r, capacity=cap) for x, r in views]
     # raw capacity covers the input; the registration-resolution cloud is
     # bounded separately (resized ~500k -> 2^20 keeps padding waste low)
-    params = _big_params(min(cap, 1 << 20))
+    params = big_params(min(cap, 1 << 20))
 
-    if not os.environ.get("BENCH_NO_WARMUP"):
-        estimate_maps_transforms(clouds, params, seed=0)  # compile warm-up
+    estimate_maps_transforms(clouds, params, seed=0)  # compile warm-up
     t0 = time.perf_counter()
     transforms = estimate_maps_transforms(clouds, params, seed=0)
     wall = time.perf_counter() - t0
@@ -274,40 +144,23 @@ def config2():
     # the faithful scipy-cKDTree reimplementation of the reference pipeline
     # on the IDENTICAL fixture + params), with a pose gate against its
     # golden poses — the same protocol as bench.py/config1
-    golden_path = os.path.join(
-        os.path.dirname(os.path.abspath(__file__)), "golden", "config2.json"
-    )
-    record = {
+    golden, _ = check_golden(transforms, "config2", rot_tol=2.0, trans_tol=0.3)
+    emit({
         "config": "config2_5map_500k",
         "metric": "5-map all-pairs merge wall-clock (1 chip, warm)",
         "cloud_points": sizes,
         "value": round(wall, 2),
         "unit": "s",
         "maps_per_min": round(5 * 60.0 / wall, 2),
-    }
-    if os.path.exists(golden_path):
-        with open(golden_path) as f:
-            golden = json.load(f)
-        for i, gt in enumerate(golden["transforms"]):
-            gt = np.asarray(gt, np.float32)
-            if not (gt.any() and np.asarray(transforms[i]).any()):
-                continue
-            rel = np.linalg.inv(np.asarray(transforms[0])) @ transforms[i]
-            grel = np.linalg.inv(np.asarray(golden["transforms"][0])) @ gt
-            rot, trans = _pose_err(rel, grel)
-            assert rot < 2.0 and trans < 0.3, (
-                f"golden pose gate: map {i}: {rot} deg {trans} m vs oracle"
-            )
-        record["oracle_wall_s"] = golden["wall_seconds"]
-        record["vs_baseline"] = round(golden["wall_seconds"] / wall, 2)
-    emit(record)
+        "oracle_wall_s": golden["wall_seconds"],
+        "vs_baseline": round(golden["wall_seconds"] / wall, 2),
+    })
 
 
 def config3():
     """1000-hypothesis RANSAC registration on a ~2M-pt LiDAR-style pair."""
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jaxcache")
     from mapmerge_tpu.core.cloud import PointCloud
     from mapmerge_tpu.pipeline.features import extract_features
     from mapmerge_tpu.pipeline.registration import estimate_transform
@@ -316,24 +169,23 @@ def config3():
     sizes = [len(v[0]) for v in views]
     cap = 1 << int(np.ceil(np.log2(max(sizes))))
     clouds = [PointCloud.from_arrays(x, r, capacity=cap) for x, r in views]
-    params = _big_params(1 << 20).replace(ransac_hypotheses=1024)
+    params = big_params(1 << 20).replace(ransac_hypotheses=1024)
 
-    if not os.environ.get("BENCH_NO_WARMUP"):
-        fa = extract_features(clouds[0], params)
-        fb = extract_features(clouds[1], params)
-        device_sync(fb)
-        est = estimate_transform(fa, fb, params, jax.random.key(0))
-        device_sync(est.transform)
+    fa = extract_features(clouds[0], params)  # compile warm-up
+    fb = extract_features(clouds[1], params)
+    jax.block_until_ready(
+        estimate_transform(fa, fb, params, jax.random.key(0)).transform
+    )
 
     t0 = time.perf_counter()
     fa = extract_features(clouds[0], params)
     fb = extract_features(clouds[1], params)
     est = estimate_transform(fa, fb, params, jax.random.key(0))
-    device_sync(est.transform)
+    jax.block_until_ready(est.transform)
     wall = time.perf_counter() - t0
 
     truth_rel = np.linalg.inv(truths[1]) @ truths[0]
-    rot, trans = _pose_err(np.asarray(est.transform), truth_rel.astype(np.float32))
+    rot, trans = pose_err(np.asarray(est.transform), truth_rel)
     assert rot < 2.0 and trans < 0.3, f"accuracy gate: {rot} deg {trans} m"
     emit(
         {
@@ -348,291 +200,13 @@ def config3():
     )
 
 
-def _config4_fixture():
-    from mapmerge_tpu.core.cloud import PointCloud
-    from mapmerge_tpu.core.params import MergeParams
-
-    n_maps = 20
-    views, truths = town_views(n_maps, view_resized_target=4096, seed=3)
-    sizes = [len(v[0]) for v in views]
-    raw_cap = 1 << int(np.ceil(np.log2(max(sizes))))
-    clouds = [
-        PointCloud.from_arrays(x, r, capacity=raw_cap) for x, r in views
-    ]
-    params = MergeParams(
-        keypoint_type="SIFT", keypoint_threshold=3.0,
-        descriptor_type="FPFH", refine_transform=True,
-        max_iterations=30,
-        max_points=8192, max_keypoints=384, max_neighbors=48,
-        ransac_hypotheses=768, neighbor_tile=256,
-    )
-    return clouds, truths, params, raw_cap
-
-
-def _tree_bytes(tree) -> int:
-    import jax
-
-    return sum(
-        int(np.prod(a.shape)) * a.dtype.itemsize
-        for a in jax.tree_util.tree_leaves(tree)
-    )
-
-
-def _cpu_time() -> float:
-    """Process CPU seconds (user+sys, all threads) — the aggregate
-    busy-time of the shared-core virtual devices."""
-    import resource
-
-    r = resource.getrusage(resource.RUSAGE_SELF)
-    return r.ru_utime + r.ru_stime
-
-
-def config4():
-    """20-map merge scaling study on the virtual CPU mesh (VERDICT r4
-    item 1): END-TO-END wall (features under the mesh + pair stage +
-    graph solve) at 8 devices, the pair stage at device counts
-    {1, 2, 4, 8} with busy-time accounting, communication-volume
-    accounting, and an analytic scaling model validated against the
-    held-out 1-device measurement. docs/SCALING.md interprets the terms.
-
-    Busy time: virtual CPU devices share the host cores and expose no
-    per-device trace tracks, so per-device busy is accounted two ways:
-    (a) aggregate process CPU time during each sweep (total busy across
-    all devices; conservation across device counts shows no work is
-    duplicated by sharding), and (b) per-shard completion timestamps
-    (skew shows balance). The reference's sequential hot loop being
-    fanned out: map_merging.cpp:248-269.
-    """
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_num_cpu_devices", 8)
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jaxcache-cpu")
-    import jax.numpy as jnp
-
-    from mapmerge_tpu.core.cloud import PointCloud, stack_clouds
-    from mapmerge_tpu.graph.merge_graph import (
-        TransformEstimate,
-        compute_global_transforms,
-    )
-    from mapmerge_tpu.parallel.mesh import make_mesh, pad_to_multiple
-    from mapmerge_tpu.parallel.pair_shard import (
-        estimate_pairs_sharded,
-        extract_features_sharded,
-        pad_pairs,
-    )
-
-    clouds, truths, params, raw_cap = _config4_fixture()
-    n_maps = len(clouds)
-
-    mesh8 = make_mesh(jax.devices())
-    n_padded = pad_to_multiple(n_maps, 8)
-    empty = PointCloud.from_arrays(np.zeros((0, 3), np.float32),
-                                   capacity=raw_cap)
-    batch = stack_clouds(clouds + [empty] * (n_padded - n_maps))
-    print("[config4] compiling feature stage (8-dev)...", flush=True)
-    features = extract_features_sharded(batch, params, mesh8)  # warm
-    device_sync(features)
-    t0 = time.perf_counter()
-    features = extract_features_sharded(batch, params, mesh8)
-    device_sync(features)
-    t_feat8 = time.perf_counter() - t0
-    print(f"[config4] feature stage warm (8-dev): {t_feat8:.2f}s", flush=True)
-
-    pairs = [(i, j) for i in range(n_maps - 1) for j in range(i + 1, n_maps)]
-    src_idx, tgt_idx, n_pairs = pad_pairs(pairs, 8)
-    p_padded = int(src_idx.shape[0])  # 192: divisible by 1/2/4/8
-    keys = jax.vmap(jax.random.fold_in, in_axes=(None, 0))(
-        jax.random.key(0), jnp.arange(p_padded)
-    )
-    wall, busy, skew = {}, {}, {}
-    feat_bytes = _tree_bytes(features)
-    est8 = None
-    # 8-dev first: the essential sharded measurement (and the estimates
-    # the gates consume) lands even if a wall-clock budget kills the run
-    # mid-compile of a later device count; a partial record is emitted
-    # after every count (XLA:CPU AOT cache entries do not reload across
-    # processes on this host, so each run pays its own compiles)
-    for n_dev in (8, 1, 2, 4):
-        mesh = make_mesh(jax.devices()[:n_dev])
-        from jax.sharding import NamedSharding, PartitionSpec as P
-
-        # features resident replicated on THIS mesh (what a real
-        # deployment holds after the feature stage)
-        features_n = jax.device_put(features, NamedSharding(mesh, P()))
-        device_sync(features_n)
-        print(f"[config4] compiling pair stage ({n_dev}-dev)...", flush=True)
-        est = estimate_pairs_sharded(
-            features_n, src_idx, tgt_idx, params, keys, mesh
-        )  # compile + warm
-        device_sync(est.transform)
-        print(f"[config4] pair stage warm ({n_dev}-dev)", flush=True)
-        c0, t0 = _cpu_time(), time.perf_counter()
-        est = estimate_pairs_sharded(
-            features_n, src_idx, tgt_idx, params, keys, mesh
-        )
-        # per-shard completion timestamps: balance/skew evidence
-        stamps = []
-        for shard in est.transform.addressable_shards:
-            jax.block_until_ready(shard.data)
-            stamps.append(time.perf_counter() - t0)
-        device_sync(est.transform)
-        wall[n_dev] = time.perf_counter() - t0
-        busy[n_dev] = _cpu_time() - c0
-        skew[n_dev] = round(max(stamps) - min(stamps), 3) if len(stamps) > 1 else 0.0
-        if n_dev == 8:
-            est8 = est
-        emit(
-            {
-                "config": "config4_20map_mesh8",
-                "metric": "20-map merge scaling study on virtual CPU mesh "
-                "(PARTIAL: device counts measured so far)",
-                "value": round(wall[8], 2),
-                "unit": "s",
-                "feature_wall_8dev": round(t_feat8, 2),
-                "pair_wall_by_ndev": {str(n): round(w, 2) for n, w in wall.items()},
-                "pair_busy_cpu_s_by_ndev": {
-                    str(n): round(b, 2) for n, b in busy.items()
-                },
-                "pair_completion_skew_s_8dev": skew.get(8),
-                "host_cores": os.cpu_count() or 1,
-                "replicated_feature_bytes": feat_bytes,
-                "partial": True,
-            }
-        )
-    est = est8
-
-    # ---- analytic model (docs/SCALING.md) ----
-    # wall(n) = busy_total / min(n, cores) + overhead(n). Fit on n in
-    # {2,4,8}, predict the held-out n=1 measurement.
-    cores = os.cpu_count() or 1
-    busy_ref = np.mean([busy[n] for n in (2, 4, 8)])
-    overhead = {
-        n: wall[n] - busy[n] / min(n, cores) for n in (1, 2, 4, 8)
-    }
-    o_fit = float(np.mean([overhead[n] for n in (2, 4, 8)]))
-    pred_1 = busy_ref / 1.0 + o_fit  # n=1: single device, single stream
-    model_err_1dev = abs(pred_1 - wall[1]) / wall[1]
-
-    # accuracy gate: full graph solve from the 8-dev estimates
-    transforms_np = np.asarray(est.transform)[:n_pairs]
-    confidences = np.asarray(est.confidence)[:n_pairs]
-    amb = np.asarray(est.ambiguous())[:n_pairs]
-    estimates = [
-        TransformEstimate(source_idx=i, target_idx=j,
-                          transform=transforms_np[k],
-                          confidence=float(confidences[k]),
-                          ambiguous=bool(amb[k]))
-        for k, (i, j) in enumerate(pairs)
-    ]
-    from mapmerge_tpu.graph.pose_graph import refine_global_transforms
-
-    t0 = time.perf_counter()
-    transforms = compute_global_transforms(estimates, params.confidence_threshold)
-    # all-edge pose-graph relaxation, same as the pipeline's default path
-    # (merging._solve_graph; VERDICT r2 item 3)
-    transforms = refine_global_transforms(
-        estimates, transforms, params.confidence_threshold
-    )
-    t_graph = time.perf_counter() - t0
-    # full-pipeline per-hop accuracy (ICP refine on); min_ok=0 here —
-    # the GATES run after the final emit so a quality failure still
-    # leaves the measured record on disk
-    hop_errs = check_adjacent(
-        transforms, truths, rot_tol=5.0, trans_tol=0.5, min_ok=0
-    )
-    drift = end_to_end_drift(transforms, truths)
-    per_map = _per_map_errors(transforms, truths)
-    within = sum(
-        1 for e in per_map if e is not None and e[0] < 1.0 and e[1] < 0.1
-    )
-    n_ambiguous = int(amb.sum())
-    bad_map_edges_flagged = sum(
-        1 for k, (i, j) in enumerate(pairs) if amb[k] and 18 in (i, j)
-    )
-    speedup = wall[1] / wall[8]
-    end_to_end = t_feat8 + wall[8] + t_graph
-    emit(
-        {
-            "config": "config4_20map_mesh8",
-            "metric": "20-map merge END-TO-END on 8-device virtual CPU mesh "
-            "(features sharded over cloud axis + 190-pair stage sharded "
-            "over pair axis + pose-graph solve; warm)",
-            "value": round(end_to_end, 2),
-            "unit": "s",
-            "feature_wall_8dev": round(t_feat8, 2),
-            "graph_solve_wall": round(t_graph, 3),
-            "pair_wall_by_ndev": {str(n): round(wall[n], 2) for n in wall},
-            "pair_busy_cpu_s_by_ndev": {
-                str(n): round(busy[n], 2) for n in busy
-            },
-            "pair_completion_skew_s_8dev": skew[8],
-            "host_cores": cores,
-            "model": {
-                "form": "wall(n) = busy_total/min(n, cores) + overhead",
-                "busy_total_s": round(float(busy_ref), 2),
-                "overhead_s": round(o_fit, 2),
-                "pred_wall_1dev": round(float(pred_1), 2),
-                "measured_wall_1dev": round(wall[1], 2),
-                "rel_err_1dev": round(float(model_err_1dev), 3),
-            },
-            "replicated_feature_bytes": feat_bytes,
-            "pair_output_bytes": int(p_padded * (16 + 6) * 4),
-            "speedup_1to8": round(speedup, 2),
-            "scaling_efficiency_vs_2core_ceiling": round(
-                speedup / min(8, cores), 3
-            ),
-            "maps_within_1deg_0p1m": within,
-            "ambiguous_edges_flagged": n_ambiguous,
-            "bad_map18_edges_flagged": bad_map_edges_flagged,
-            "end_to_end_drift_deg_m": drift,
-            "median_hop_err_deg_m": [
-                round(float(np.median([e[0] for e in hop_errs])), 2),
-                round(float(np.median([e[1] for e in hop_errs])), 3),
-            ],
-            "note": "virtual devices share the host's cores: the compute "
-            "ceiling is min(n_dev, cores); chip-scaling projection in "
-            "docs/SCALING.md uses the measured TPU t_pair instead",
-        }
-    )
-    # accuracy gates LAST (the measured record above survives a failure):
-    # >= 14/19 adjacent hops within 5 deg / 0.5 m, and the refined pose
-    # graph must place the BULK of the maps tightly — >= 18/20 within
-    # 1 deg / 0.1 m of truth relative to map 0. The worst map is
-    # reported, not gated: one view of this fixture (map 18, r4/r5
-    # measured) has floor-dominated overlaps whose highest-confidence
-    # registrations are consistently wrong — unrecoverable by any graph
-    # solve; r5 flags such edges at registration time
-    # (PairEstimate.ambiguous) and the pose graph half-weights them.
-    n_hop_ok = sum(1 for e in hop_errs if e[0] < 5.0 and e[1] < 0.5)
-    assert n_hop_ok >= 14, f"adjacent-pair gate: only {n_hop_ok} ok ({hop_errs[:8]}...)"
-    assert within >= 18, (
-        f"bulk accuracy gate: only {within}/20 maps within 1 deg / 0.1 m "
-        f"({per_map})"
-    )
-
-
 def config5():
     """50-map online stream through MapMergeNode."""
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jaxcache-cpu")
-    from mapmerge_tpu.core.params import MergeParams
     from mapmerge_tpu.runtime.node import MapMergeNode
     from mapmerge_tpu.runtime.transport import InProcTransport
 
     views, truths = town_views(50, view_resized_target=2048, seed=5)
-    # ICP refinement ON (the reference default): RANSAC-only pairwise
-    # poses carry degrees of error on these tiny 2048-pt views, and a
-    # ~25-hop chain compounds that past any graph solve's reach
-    # (measured 28 deg end-to-end without ICP vs the <10 deg gate)
-    params = MergeParams(
-        keypoint_type="SIFT", keypoint_threshold=3.0,
-        descriptor_type="FPFH", refine_transform=True, max_iterations=20,
-        max_points=4096, max_keypoints=128, max_neighbors=32,
-        ransac_hypotheses=256, neighbor_tile=256,
-    )
+    params = stream_params()
     transport = InProcTransport()
     node = MapMergeNode(transport, params=params, seed=0)
 
@@ -664,7 +238,7 @@ def config5():
         {
             "config": "config5_50map_stream",
             "metric": "50-map online stream: 5 estimation ticks x growing "
-            "robot set through MapMergeNode (CPU host loop)",
+            "robot set through MapMergeNode",
             "value": round(wall, 2),
             "unit": "s",
             "maps_registered": ok,
@@ -677,12 +251,12 @@ def config5():
 
 def config5_big():
     """THE north-star config (BASELINE.json): 50 x ~half-million-pt maps
-    streamed through the online node on ONE TPU chip, >= 10x the CPU
-    oracle at gated accuracy.
+    streamed through the online node on one chip, >= 10x the CPU oracle at
+    gated accuracy.
 
     The node runs in incremental register-to-world mode
     (pipeline/incremental.py): features are extracted once per map and new
-    maps localize against the world model — the TPU-native answer to the
+    maps localize against the world model — the batched answer to the
     reference's per-tick stateless O(N^2) re-estimation.
 
     vs_baseline protocol (VERDICT r2 item 1 allows a documented
@@ -695,9 +269,6 @@ def config5_big():
     reference node actually re-runs all of it on every estimation tick
     (map_merge_node.cpp:141-142), so the reported ratio is a lower bound.
     """
-    import jax
-
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jaxcache")
     from mapmerge_tpu.core.params import MergeParams
     from mapmerge_tpu.runtime.node import MapMergeNode
     from mapmerge_tpu.runtime.transport import InProcTransport
@@ -731,7 +302,7 @@ def config5_big():
     t_pair = time.perf_counter() - t0
     oracle_wall = n_maps * t_feat + (n_maps * (n_maps - 1) // 2) * t_pair
 
-    # ---- the TPU stream ----
+    # ---- the stream on the chip ----
     transport = InProcTransport()
     node = MapMergeNode(
         transport, params=params, seed=0, incremental=True, max_robots=64
@@ -764,7 +335,7 @@ def config5_big():
         {
             "config": "config5_big_50map_500k",
             "metric": "50-map ~500k-pt online stream, incremental "
-            "register-to-world on 1 TPU chip",
+            "register-to-world on 1 chip",
             "raw_points_per_map": [min(raw_sizes), max(raw_sizes)],
             "value": round(wall, 2),
             "unit": "s",
@@ -789,6 +360,10 @@ def config5_big():
 
 
 if __name__ == "__main__":
-    which = sys.argv[1:] or ["config2", "config3", "config4", "config5"]
+    from mapmerge_tpu.utils.compile_cache import enable_compile_cache
+
+    require_gpu()
+    enable_compile_cache()
+    which = sys.argv[1:] or ["config2", "config3", "config5"]
     for name in which:
         globals()[name]()

@@ -1,6 +1,6 @@
 """Padded fixed-shape point-cloud array model.
 
-TPU-native replacement for the reference's dynamic PCL clouds
+Fixed-shape replacement for the reference's dynamic PCL clouds
 (map_merge_3d/include/map_merge_3d/typedefs.h:15-36, PointT=pcl::PointXYZRGB).
 XLA wants static shapes, so a cloud is a `(capacity, ...)` array bundle with a
 validity mask; every op in the framework is mask-aware. Where the reference
@@ -96,7 +96,7 @@ def stack_clouds(clouds: list[PointCloud], capacity: Optional[int] = None):
 
     Pads every cloud to a common capacity (max of inputs by default) so the
     per-cloud feature stage can be vmapped/shard_mapped over the batch axis —
-    the TPU answer to the reference's sequential per-cloud loops
+    the batched answer to the reference's sequential per-cloud loops
     (map_merge_3d/src/map_merging.cpp:211-242).
     """
     cap = capacity or max(c.capacity for c in clouds)

@@ -1,6 +1,6 @@
 """String-typed config enums.
 
-TPU-native equivalent of the reference's ENUM_CLASS preprocessor reflection
+JAX equivalent of the reference's ENUM_CLASS preprocessor reflection
 (reference: map_merge_3d/include/map_merge_3d/enum.h:30-67). The reference
 generates to_string/from_string for three enums used in string-typed config
 (map_merge_3d/include/map_merge_3d/features.h, matching.h). Python's StrEnum

@@ -1,6 +1,6 @@
 """Merge pipeline configuration.
 
-TPU-native equivalent of the reference's `MapMergingParams`
+JAX equivalent of the reference's `MapMergingParams`
 (map_merge_3d/include/map_merge_3d/map_merging.h:28-70): the same 16 tunables
 with the same defaults and the same derived-default semantics, plus the
 static capacity knobs a fixed-shape XLA program needs (padded sizes,
@@ -36,7 +36,7 @@ class MergeParams:
     """All tunables for N-map transform estimation + compositing.
 
     Field-for-field parity with the reference struct
-    (map_merging.h:29-44); capacity fields are new, TPU-specific.
+    (map_merging.h:29-44); capacity fields are new (static shapes).
     """
 
     # ---- reference tunables (map_merging.h:29-44) ----
@@ -57,7 +57,7 @@ class MergeParams:
     confidence_threshold: float = 0.0
     output_resolution: float = 0.05
 
-    # ---- TPU capacity knobs (static shapes; no reference analog) ----
+    # ---- capacity knobs (static shapes; no reference analog) ----
     #: padded per-cloud point capacity at registration resolution
     max_points: int = 65536
     #: padded keypoint / descriptor capacity per cloud
@@ -69,7 +69,7 @@ class MergeParams:
     ransac_hypotheses: int = 1024
     #: batched SAC-IA hypothesis count — the batched analog of the
     #: reference's sequential max_iterations for SAC_IA (matching.cpp:159-173);
-    #: hypotheses are nearly free on the MXU, so the default is generous
+    #: hypotheses are batched matmul work, so the default is generous
     sacia_hypotheses: int = 4096
     #: query tile size for the dense tiled neighbor engine
     neighbor_tile: int = 1024

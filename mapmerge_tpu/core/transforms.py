@@ -66,7 +66,7 @@ def compose(a: jax.Array, b: jax.Array) -> jax.Array:
 def apply(t: jax.Array, xyz: jax.Array) -> jax.Array:
     """Apply (..., 4, 4) to points (..., N, 3).
 
-    TPU equivalent of pcl::transformPointCloud
+    JAX equivalent of pcl::transformPointCloud
     (reference src/matching.cpp:211, src/map_merging.cpp:297).
     """
     r = rotation(t)

@@ -6,7 +6,7 @@ components with a confidence threshold, maximum spanning tree by Kruskal on
 descending confidence, tree centers by leaf-BFS eccentricity, and global
 transform chaining over the tree. The problem is O(N^2) scalars for N maps —
 it stays exact and simple on the host in numpy while the heavy pairwise
-estimation runs on the TPU mesh (SURVEY.md §7 sharding plan).
+estimation runs on the device mesh (SURVEY.md §7 sharding plan).
 
 Semantics faithfully mirror the reference:
 - edges below `confidence_threshold` do not join components

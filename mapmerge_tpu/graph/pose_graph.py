@@ -7,7 +7,7 @@ good. This module is the improvement the batched pair stage makes natural:
 estimate_maps_transforms already registers ALL O(N^2) pairs, so after the
 MST seed we relax the full edge set with a damped Gauss-Newton on SE(3)
 (host-side numpy — the problem is 6N unknowns for N maps, microscopic next
-to the TPU stages).
+to the device stages).
 
 Conventions (match graph/merge_graph.py chaining):
   - global[i] maps map-i coordinates into the reference frame;

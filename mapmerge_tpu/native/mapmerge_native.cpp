@@ -1,7 +1,7 @@
 // Native host-side components.
 //
 // The reference implements its entire runtime in C++ (SURVEY.md §2a); the
-// TPU build keeps the compute path in XLA but implements the host-side
+// JAX build keeps the compute path in XLA but implements the host-side
 // graph-builder and data-loader hot paths natively:
 //
 //  - merge_graph_solve: union-find connected components + Kruskal maximum

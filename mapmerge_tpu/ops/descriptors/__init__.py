@@ -1,6 +1,6 @@
 """Descriptor dispatch registry.
 
-TPU equivalent of the reference's compile-time descriptor registry
+JAX equivalent of the reference's compile-time descriptor registry
 (map_merge_3d/src/dispatch_descriptors.h:28-121): one call surface for all
 descriptor types, dispatch by enum or by dimensionality recovered from the
 data itself (the reference recovers type from the PointCloud2 field name,

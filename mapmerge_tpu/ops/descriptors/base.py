@@ -1,6 +1,6 @@
 """Descriptor result container shared by all descriptor kernels.
 
-TPU equivalent of the reference's type-erased pcl::PCLPointCloud2 descriptor
+JAX equivalent of the reference's type-erased pcl::PCLPointCloud2 descriptor
 transport (typedefs.h:27-29): one fixed-shape (K, D) array regardless of
 descriptor type, with a validity mask replacing the reference's physical
 removal of invalid descriptors + their keypoints (features.cpp:118-141).

@@ -1,6 +1,6 @@
 """FPFH-33 descriptors.
 
-TPU-native equivalent of pcl::FPFHEstimation (reference
+JAX equivalent of pcl::FPFHEstimation (reference
 dispatch_descriptors.h:40, FPFHSignature33): Simplified Point Feature
 Histograms per surface point, then distance-weighted aggregation over each
 keypoint's neighborhood.
@@ -43,9 +43,71 @@ from mapmerge_tpu.ops.descriptors.darboux import bin_index, pair_features
 from mapmerge_tpu.ops.keypoints.harris import Keypoints
 from mapmerge_tpu.ops.neighbors import _resolve_engine, radius_neighbors
 from mapmerge_tpu.ops.normals import SurfaceNormals
+from mapmerge_tpu import pallas
 
 _BINS = 11
 _PI = float(jnp.pi)
+
+
+def spfh_tile_plain(
+    q_xyz: jax.Array,  # (B, Cq, 3)
+    q_nrm: jax.Array,  # (B, Cq, 3)
+    cand_xyz: jax.Array,  # (Bc, M, 3), Bc in {1, B}
+    cand_nrm: jax.Array,  # (Bc, M, 3)
+    cand_ok: jax.Array,  # (Bc, M) bool
+    r2: float,
+) -> tuple[jax.Array, jax.Array]:
+    """SPFH histograms of query slabs against their candidates, in plain
+    jnp: ((B, Cq, 33) PCL sum-100 histograms, (B, Cq) pair counts).
+
+    The Darboux features of every (query, candidate) pair are binned in
+    place — the 33 bins are separate masked reductions over the candidate
+    axis (no (B, Cq, M, 33) one-hot tensor, no neighbor index lists). With
+    Bc == 1 every slab sweeps the same candidates, one slab at a time.
+    This is the reference the kernel (pallas/spfh.py) is checked against,
+    and the path the CPU takes."""
+    r2 = jnp.float32(r2)
+
+    def tile(q_blk, qn_blk, c_xyz, c_nrm, c_ok):
+        theta, alpha, phi, dist, pair_ok = pair_features(
+            q_blk[:, :, None, :], qn_blk[:, :, None, :],
+            c_xyz[:, None, :, :], c_nrm[:, None, :, :],
+        )  # (B, Cq, M)
+        d2 = dist * dist
+        # pair_ok already excludes the zero-distance self hit (PCL pairs a
+        # point with its neighbors, not itself)
+        w = (c_ok[:, None, :] & pair_ok & (d2 <= r2)).astype(jnp.float32)
+        t_i = bin_index(theta, -_PI, _PI, _BINS)
+        a_i = bin_index(alpha, -1.0, 1.0, _BINS)
+        p_i = bin_index(phi, -1.0, 1.0, _BINS)
+        cols = [
+            jnp.sum(w * (src == b), axis=-1)
+            for src in (t_i, a_i, p_i)
+            for b in range(_BINS)
+        ]
+        hist = jnp.stack(cols, axis=-1)  # (B, Cq, 33)
+        total = jnp.sum(w, axis=-1)
+        scale = jnp.where(total > 0, 100.0 / jnp.maximum(total, 1.0), 0.0)
+        return hist * scale[..., None], total
+
+    if cand_xyz.shape[0] == 1 and q_xyz.shape[0] > 1:
+        spfh, total = jax.lax.map(
+            lambda a: tile(a[0][None], a[1][None], cand_xyz, cand_nrm,
+                           cand_ok),
+            (q_xyz, q_nrm),
+        )  # (B, 1, Cq, ...)
+        return spfh[:, 0], total[:, 0]
+    return tile(q_xyz, q_nrm, cand_xyz, cand_nrm, cand_ok)
+
+
+def _spfh_tiles():
+    """The SPFH sweep for this platform: the fused kernel on the GPU, the
+    plain jnp version on the CPU (pallas.use_kernels)."""
+    if pallas.use_kernels():
+        from mapmerge_tpu.pallas.spfh import spfh_tile_pallas
+
+        return spfh_tile_pallas
+    return spfh_tile_plain
 
 
 def _spfh_dense(
@@ -67,19 +129,14 @@ def _spfh_dense(
     grid-engine sweep. This replaced a top-k neighbor-list formulation
     (capped nearest-48 gather + one-hot histograms): the k-selection over
     (Q, P) distance slabs dominated the stage, while the pure masked
-    reduction sweep is bandwidth/VPU work the chip does well. On TPU the
-    sweep runs through the fused Pallas kernel (pallas/spfh.py);
-    `max_neighbors` is unused here (kept for signature parity — it still
-    caps the keypoint-neighborhood gather in compute_fpfh).
+    reduction sweep is elementwise and reduction work. `max_neighbors` is
+    unused here (kept for signature parity — it still caps the
+    keypoint-neighborhood gather in compute_fpfh).
     """
-    from mapmerge_tpu.ops.neighbors import _use_pallas
-
     p_ok = cloud.mask & normals.valid
-    r2 = jnp.float32(radius * radius)
     q = q_xyz.shape[0]
-    # slab rows per step: bounds the (Cq, chunk) pair planes in flight
-    # (the Pallas kernel holds ~15 such planes in VMEM — Cq = 128 keeps
-    # them at 256 KB each; 1024 measured a VMEM stack OOM)
+    # slab rows per step: bounds the (Cq, P) pair planes of the plain path.
+    # Chosen on the earlier accelerator; not measured on the H100.
     cq = min(q, 128)
     pad = (-q) % cq
 
@@ -90,43 +147,13 @@ def _spfh_dense(
             else a
         )
 
-    xyz_s = pad0(q_xyz).reshape(-1, cq, 3)
-    nrm_s = pad0(q_nrm).reshape(-1, cq, 3)
-
-    if _use_pallas():
-        from mapmerge_tpu.pallas.spfh import spfh_tile_pallas
-
-        # shared-candidate mode: leading dim 1 — every query slab sweeps
-        # the same cloud (spfh_tile_pallas docstring)
-        spfh, total = spfh_tile_pallas(
-            xyz_s, nrm_s, cloud.xyz[None], normals.normals[None],
-            p_ok[None], r2=float(radius) * float(radius),
-        )  # (b, cq, 33), (b, cq)
-    else:
-
-        def slab(args):
-            sxyz, snrm = args
-            theta, alpha, phi, dist, pair_ok = pair_features(
-                sxyz[:, None, :], snrm[:, None, :],
-                cloud.xyz[None, :, :], normals.normals[None, :, :],
-            )  # (cq, P)
-            d2 = dist * dist
-            w = (p_ok[None, :] & pair_ok & (d2 <= r2)).astype(jnp.float32)
-            t_i = bin_index(theta, -_PI, _PI, _BINS)
-            a_i = bin_index(alpha, -1.0, 1.0, _BINS)
-            p_i = bin_index(phi, -1.0, 1.0, _BINS)
-            cols = [
-                jnp.sum(w * (src == b_), axis=-1)
-                for src in (t_i, a_i, p_i)
-                for b_ in range(_BINS)
-            ]
-            hist = jnp.stack(cols, axis=-1)  # (cq, 33)
-            total = jnp.sum(w, axis=-1)
-            scale = jnp.where(total > 0, 100.0 / jnp.maximum(total, 1.0), 0.0)
-            return hist * scale[..., None], total
-
-        spfh, total = jax.lax.map(slab, (xyz_s, nrm_s))
-
+    # shared-candidate mode: candidate leading dim 1 — every query slab
+    # sweeps the same cloud
+    spfh, total = _spfh_tiles()(
+        pad0(q_xyz).reshape(-1, cq, 3), pad0(q_nrm).reshape(-1, cq, 3),
+        cloud.xyz[None], normals.normals[None], p_ok[None],
+        r2=float(radius) * float(radius),
+    )  # (b, cq, 33), (b, cq)
     spfh = spfh.reshape(-1, 3 * _BINS)[:q]
     total = total.reshape(-1)[:q]
     # q_ok gates validity only (masked-out queries are swept — their FAR
@@ -145,71 +172,31 @@ def _spfh_grid(
 ) -> tuple[jax.Array, jax.Array]:
     """SPFH (P, 33) at every cloud point flagged `needed` + pair counts (P,).
 
-    One grid pass: every (needed point, valid in-radius candidate) pair's
-    Darboux features are binned in place — the 33 bins are separate masked
-    reductions over the candidate axis, which XLA fuses into a single sweep
-    (no (B, Cq, M, 33) one-hot tensor, no neighbor index lists).
+    One grid pass: every (needed point, valid in-radius candidate) pair of
+    each cell tile goes through the SPFH sweep (_spfh_tiles).
 
     `grid`: optional prebuilt CellGrid of the cloud at `radius` (shared
     with the keypoint-neighborhood query by compute_fpfh). The query-side
     grid is DERIVED from it by masking (masked_query_grid) — the queries
     are the grid's own points — so the whole FPFH stage pays for exactly
-    one 1M-point sort instead of three (measured ~0.3 s each)."""
+    one 1M-point sort instead of three."""
     from mapmerge_tpu.ops.grid import (
         build_grid,
         grid_query,
         masked_query_grid,
     )
-    from mapmerge_tpu.ops.neighbors import _use_pallas
 
     p_ok = cloud.mask & normals.valid
     if grid is None:
         grid = build_grid(cloud.xyz, p_ok, radius, None, scan_cap)
-    r2 = jnp.float32(radius * radius)
     qg = masked_query_grid(grid, needed & p_ok, cloud.capacity)
-
-    if _use_pallas():
-        # fused Pallas sweep (pallas/spfh.py): identical math, one pass —
-        # the Darboux frame is evaluated once per pair and all 33 bins
-        # accumulate in VMEM instead of 33 XLA reductions over
-        # re-materialized feature planes
-        from mapmerge_tpu.pallas.spfh import spfh_tile_pallas
-
-        def tile_fn(q_block, cand_xyz, cand_ok, cand_idx, q_nrm, cand_nrm):
-            return spfh_tile_pallas(
-                q_block, q_nrm, cand_xyz, cand_nrm, cand_ok,
-                r2=float(radius) * float(radius),
-            )
-
-        nrm = normals.normals
-        (spfh, total), _ = grid_query(
-            cloud.xyz, grid, tile_fn,
-            (jnp.zeros((3 * _BINS,), jnp.float32), jnp.float32(0)),
-            tile=tile, q_values=nrm, p_values=nrm, qg=qg,
-        )
-        return spfh, total
+    sweep = _spfh_tiles()
 
     def tile_fn(q_block, cand_xyz, cand_ok, cand_idx, q_nrm, cand_nrm):
-        theta, alpha, phi, dist, pair_ok = pair_features(
-            q_block[:, :, None, :], q_nrm[:, :, None, :],
-            cand_xyz[:, None, :, :], cand_nrm[:, None, :, :],
-        )  # (B, Cq, M)
-        d2 = dist * dist
-        # pair_ok already excludes the zero-distance self hit (PCL pairs a
-        # point with its neighbors, not itself)
-        w = (cand_ok[:, None, :] & pair_ok & (d2 <= r2)).astype(jnp.float32)
-        t_i = bin_index(theta, -_PI, _PI, _BINS)
-        a_i = bin_index(alpha, -1.0, 1.0, _BINS)
-        p_i = bin_index(phi, -1.0, 1.0, _BINS)
-        cols = [
-            jnp.sum(w * (src == b), axis=-1)
-            for src in (t_i, a_i, p_i)
-            for b in range(_BINS)
-        ]
-        hist = jnp.stack(cols, axis=-1)  # (B, Cq, 33)
-        total = jnp.sum(w, axis=-1)
-        scale = jnp.where(total > 0, 100.0 / jnp.maximum(total, 1.0), 0.0)
-        return hist * scale[..., None], total
+        return sweep(
+            q_block, q_nrm, cand_xyz, cand_nrm, cand_ok,
+            r2=float(radius) * float(radius),
+        )
 
     nrm = normals.normals
     (spfh, total), _ = grid_query(
@@ -240,7 +227,7 @@ def compute_fpfh(
         # neighborhood query (small-Q gather path) and the SPFH sweep use
         # the same cell size (descriptor radius) — reusing the grid, and
         # deriving the sweep's query grid by masking, cuts three 1M-point
-        # sorts down to one (each measured ~0.3 s on a v5e chip)
+        # sorts down to one
         from mapmerge_tpu.ops.grid import (
             SMALL_Q_THRESHOLD,
             _radius_neighbors_smallq,

@@ -1,6 +1,6 @@
 """PFH-125 and PFHRGB-250 descriptors.
 
-TPU-native equivalents of pcl::PFHEstimation (the reference's DEFAULT
+JAX equivalents of pcl::PFHEstimation (the reference's DEFAULT
 descriptor, map_merging.h:35, PFHSignature125) and pcl::PFHRGBEstimation
 (PFHRGBSignature250), per dispatch_descriptors.h:38-39.
 

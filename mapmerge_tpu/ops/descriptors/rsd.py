@@ -1,6 +1,6 @@
 """RSD — radius-based surface descriptor (principal radii).
 
-TPU-native equivalent of pcl::RSDEstimation -> pcl::PrincipalRadiiRSD
+JAX equivalent of pcl::RSDEstimation -> pcl::PrincipalRadiiRSD
 (reference dispatch_descriptors.h:43): for each keypoint, estimate the
 minimum and maximum local surface curvature radii from the relation
 d(alpha) ~= 2 r sin(alpha/2) between neighbor distance d and normal

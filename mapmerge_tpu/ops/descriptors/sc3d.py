@@ -1,6 +1,6 @@
 """3D shape context descriptor (ShapeContext1980).
 
-TPU-native equivalent of pcl::ShapeContext3DEstimation (reference
+JAX equivalent of pcl::ShapeContext3DEstimation (reference
 dispatch_descriptors.h:47-48): a spherical log-polar grid around each
 keypoint — 12 azimuth x 11 elevation x 15 log-spaced radial bins = 1980 —
 accumulating neighbors weighted by 1 / (local_density * cbrt(bin_volume)),

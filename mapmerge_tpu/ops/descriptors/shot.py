@@ -1,6 +1,6 @@
 """SHOT color descriptor (SHOT1344).
 
-TPU-native equivalent of pcl::SHOTColorEstimation (reference
+JAX equivalent of pcl::SHOTColorEstimation (reference
 dispatch_descriptors.h:44-46 — the color variant, SHOT1344, is chosen
 deliberately over shape-only SHOT352):
 

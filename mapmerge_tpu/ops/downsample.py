@@ -1,6 +1,6 @@
 """Voxel-grid downsampling.
 
-TPU-native equivalent of pcl::VoxelGrid as used by the reference
+JAX equivalent of pcl::VoxelGrid as used by the reference
 (map_merge_3d/src/features.cpp:17-27): cubic leaves of size `resolution`,
 each occupied voxel replaced by the centroid of its points — including RGB
 (PCL's downsample_all_data default). Used both at input resampling

@@ -4,19 +4,18 @@ The dense tiled engine (ops/neighbors.py) is exact but streams a (tile, P)
 distance slab per query tile: at 500k points one radius pass is 2.5e11 pair
 distances — the reference's kd-tree call sites (src/features.cpp:34-41,
 171-176, src/matching.cpp:50-56) are unreachable that way. This module is
-the TPU-native replacement at scale (SURVEY.md §7 "grid-hash
+the replacement at scale (SURVEY.md §7 "grid-hash
 neighborhoods").
 
-Design (bucket-centric, chosen for the TPU memory system):
+Design (bucket-centric: whole-block gathers, no per-query row gathers):
   - Points are binned by WRAPPED integer cell coordinates (cell edge >=
     query radius; coordinates taken modulo static grid dims) and scattered
     once into a dense (H, C) cell tensor — contiguous (C, 3) blocks per
     cell.
   - Queries are binned the SAME way. All queries of one cell share one
     candidate set: the 27 neighbor cells' blocks, gathered as whole (C, 3)
-    slabs — 27 block gathers per CELL, not per query. A naive per-query
-    gather was measured 11.7 s per radius pass at 65k points on a v5e chip
-    (XLA row gathers); this layout does the same pass in milliseconds.
+    slabs — 27 block gathers per CELL, not per query (a per-query gather
+    issues one XLA row gather per query and was far slower).
   - Wrapping makes per-cell sharing exact: the wrapped ids of a cell's 27
     neighbors equal the 27 neighbor ids of the wrapped cell, so queries
     that collide by wrapping still scan a superset of their true neighbor
@@ -225,7 +224,7 @@ def grid_query(
     `qg`: optional PREBUILT query grid (same cell size/dims layout). When
     the queries are the grid's own points under a different mask, callers
     can derive it from `grid` by masking (masked_query_grid) instead of
-    paying a second 1M-point sort — measured ~0.3 s per build at 1M.
+    paying a second 1M-point sort.
 
     Returns (outputs, q_overflow_count).
     """
@@ -257,7 +256,6 @@ def grid_query(
     # scan with in-place scatter of each tile's rows into the final (Q,...)
     # outputs: a map-then-unsort would materialize (H, Cq, ...) tensors,
     # which for wide outputs (radius_neighbors k) is GBs at 1M points
-    # (measured TPU OOM at the 500k eval config)
     def init_leaf(default, t):
         # dtype from the tile_fn output (scan carry must be dtype-stable)
         return jnp.broadcast_to(
@@ -425,8 +423,8 @@ def grid_radius_count(
 #: query count at or below which grid_radius_neighbors uses the
 #: query-centric gather path instead of the bucket-centric cell sweep.
 #: The sweep's cost is O(H) scan steps + per-tile top-k regardless of how
-#: few queries exist — measured 1.48 s for 1024 keypoint queries against a
-#: 967k-pt cloud, vs ~0.1 s for the direct (Q, 27C) gather + top-k
+#: few queries exist. Chosen on the earlier accelerator; not measured on
+#: the H100.
 SMALL_Q_THRESHOLD = 4096
 
 

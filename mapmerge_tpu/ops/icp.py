@@ -1,6 +1,6 @@
 """Iterative Closest Point refinement.
 
-TPU-native equivalent of pcl::IterativeClosestPoint as configured by the
+JAX equivalent of pcl::IterativeClosestPoint as configured by the
 reference (src/matching.cpp:196-221): point-to-point ICP seeded by an
 initial guess, correspondences bounded by max_correspondence_distance,
 transformation-epsilon convergence, max-iterations cap; the result composes
@@ -9,7 +9,7 @@ icp_result * initial_guess — here the accumulated transform starts at the
 guess, which is algebraically identical).
 
 Correspondence search is the exact tiled dense 1-NN (ops/neighbors) — no
-kd-tree; each iteration is two MXU passes (NN + weighted Kabsch). The whole
+kd-tree; each iteration is two dense passes (NN + weighted Kabsch). The whole
 loop is a lax.while_loop, so vmapping over a batch of pairs runs all pairs
 until each converges (SURVEY.md §2c: batched ICP over all map pairs).
 """

@@ -1,12 +1,12 @@
 """Harris 3D keypoint detection.
 
-TPU-native equivalent of pcl::HarrisKeypoint3D as configured by the
+JAX equivalent of pcl::HarrisKeypoint3D as configured by the
 reference (map_merge_3d/src/features.cpp:64-83): HARRIS response from the
 covariance of surface normals in the search radius, non-max suppression ON,
 refinement ON, user threshold + radius.
 
 Response: C = sum over neighbors of n n^T (valid normals only);
-r = det(C) - 0.04 tr(C)^2, computed for every point from one MXU matmul
+r = det(C) - 0.04 tr(C)^2, computed for every point from one matmul
 pass (radius_reduce of the 9 outer-product channels). Non-max suppression
 is a second radius pass comparing each response to its neighborhood max.
 Refinement iterates the corner solve sum(n n^T) x = sum(n n^T p) a fixed

@@ -1,6 +1,6 @@
 """SIFT 3D keypoint detection on color intensity.
 
-TPU-native equivalent of pcl::SIFTKeypoint<PointXYZRGB, PointWithScale> as
+JAX equivalent of pcl::SIFTKeypoint<PointXYZRGB, PointWithScale> as
 configured by the reference (src/features.cpp:45-62, 92): scale-space
 difference-of-Gaussians over the RGB intensity channel
 (PCL IntensityFieldAccessor: (299 R + 587 G + 114 B) / 1000 with 8-bit
@@ -9,7 +9,7 @@ registration resolution, and min_contrast = keypoint_threshold.
 
 Per octave (base scale doubling each octave, PCL sift_keypoint.hpp):
   1. nr_scales+3 Gaussian-smoothed intensity fields, each one tiled
-     (tile, P) MXU pass: w_s = exp(-d^2 / 2 sigma_s^2) bounded at 3 sigma_max;
+     (tile, P) matmul pass: w_s = exp(-d^2 / 2 sigma_s^2) bounded at 3 sigma_max;
      smoothed = (w @ I) / (w @ 1);
   2. DoG between adjacent scales;
   3. extrema: a point is a keypoint at interior DoG level s if its value is

@@ -1,9 +1,9 @@
 """Descriptor correspondence matching.
 
-TPU-native equivalent of the reference's reciprocal k-NN cross-match
+JAX equivalent of the reference's reciprocal k-NN cross-match
 (map_merge_3d/src/matching.cpp:31-93): instead of two kd-trees over up to
 1980-d descriptors, the full (S, T) squared-distance matrix is computed on
-the MXU, top-k is taken both ways, and the reference's first-match-wins
+one matmul, top-k is taken both ways, and the reference's first-match-wins
 reciprocal rule is evaluated as a masked reduction:
 
   for source i, walk its k nearest targets in ascending-distance order and
@@ -46,7 +46,7 @@ class Correspondences:
 def descriptor_sq_dists(
     a: jax.Array, b: jax.Array, precision=jax.lax.Precision.HIGHEST
 ) -> jax.Array:
-    """(S, D) x (T, D) -> (S, T) squared L2 distances on the MXU."""
+    """(S, D) x (T, D) -> (S, T) squared L2 distances via one matmul."""
     aa = jnp.sum(a * a, axis=-1, keepdims=True)
     bb = jnp.sum(b * b, axis=-1, keepdims=True)
     ab = jnp.dot(a, b.T, precision=precision, preferred_element_type=jnp.float32)
@@ -72,17 +72,23 @@ def find_correspondences(
     t = target_desc.shape[0]
     k_eff = min(k, t)
 
-    d2 = descriptor_sq_dists(source_desc, target_desc)
-    if target_valid is not None:
-        d2 = jnp.where(target_valid[None, :], d2, BIG)
-    if source_valid is not None:
-        d2 = jnp.where(source_valid[:, None], d2, BIG)
+    def masked_d2(a, b, a_valid, b_valid):
+        d2 = descriptor_sq_dists(a, b)
+        if b_valid is not None:
+            d2 = jnp.where(b_valid[None, :], d2, BIG)
+        if a_valid is not None:
+            d2 = jnp.where(a_valid[:, None], d2, BIG)
+        return d2
 
     # forward: k nearest targets per source (ascending)
+    d2 = masked_d2(source_desc, target_desc, source_valid, target_valid)
     neg_fwd, fwd_idx = jax.lax.top_k(-d2, k_eff)  # (S, k)
     fwd_d2 = -neg_fwd
-    # backward: k nearest sources per target
-    _, back_idx = jax.lax.top_k(-d2.T, k_eff)  # (T, k)
+    # backward: k nearest sources per target, from the (T, S) distances
+    # computed as such: XLA's GPU top_k over the transposed (S, T) matrix
+    # (top_k(-d2.T)) returned wrong indices at 1024 x 1024
+    d2_back = masked_d2(target_desc, source_desc, target_valid, source_valid)
+    _, back_idx = jax.lax.top_k(-d2_back, k_eff)  # (T, k)
 
     # reciprocal test: is i among back_idx[fwd_idx[i, j]] ?
     back_of_fwd = back_idx[fwd_idx]  # (S, k, k)

@@ -1,13 +1,13 @@
-"""Dense tiled neighbor engine — the TPU replacement for PCL kd-trees.
+"""Dense tiled neighbor engine — the replacement for PCL kd-trees.
 
 Every neighborhood query in the reference goes through pcl::search::KdTree
 (radius search in RadiusOutlierRemoval/NormalEstimation/descriptor
-estimators, k-NN in matching — see SURVEY.md §2b). Pointer-chasing trees are
-hostile to the MXU, so here *all* neighbor queries are exact dense distance
+estimators, k-NN in matching — see SURVEY.md §2b). Pointer-chasing trees
+do not batch, so here *all* neighbor queries are exact dense distance
 computations, tiled over the query axis so only a (tile, P) slab is ever
 materialized. Squared distances come from the matmul identity
-|q-p|^2 = |q|^2 + |p|^2 - 2 q.p (runs on the MXU); inputs are centered first
-to keep the cancellation error well below the radii in play.
+|q-p|^2 = |q|^2 + |p|^2 - 2 q.p; inputs are centered first to keep the
+cancellation error well below the radii in play.
 
 All functions are mask-aware: invalid points are parked at FAR by the cloud
 model, and masks are applied explicitly on top.
@@ -22,24 +22,24 @@ import jax
 import jax.numpy as jnp
 
 from mapmerge_tpu.core.cloud import FAR
+from mapmerge_tpu import pallas
 
 #: squared-distance value used to exclude masked pairs
 BIG = 1.0e12
 
 #: capacity above which "auto" switches radius queries from the dense
-#: O(Q*P) engine to the cell-grid engine (ops/grid.py). Measured on a v5e
-#: chip: dense radius passes (MXU matmul slabs) still win at 65k capacity
-#: (0.8 s vs 2.7 s per feature stage); the grid wins once the quadratic
-#: slab traffic dominates
+#: O(Q*P) engine to the cell-grid engine (ops/grid.py): the grid wins once
+#: the quadratic slab traffic dominates. Chosen on the earlier
+#: accelerator; not measured on the H100.
 GRID_AUTO_THRESHOLD = 131072
-#: bounded 1-NN switches earlier: the grid NN scan beat the dense/Pallas
-#: sweep 4.7x at 65k capacity (ICP correspondence + transform score)
+#: bounded 1-NN (ICP correspondence + transform score) switches earlier.
+#: Chosen on the earlier accelerator; not measured on the H100.
 GRID_NN_THRESHOLD = 49152
 
 
 def _resolve_engine(engine: str, p_count: int, threshold: int | None = None) -> str:
     """'auto' -> dense for small clouds (exact oracle, no caps), grid past
-    the op-specific threshold where dense HBM traffic becomes the wall.
+    the op-specific threshold where dense slab traffic becomes the wall.
     Env MAPMERGE_ENGINE=dense|grid forces one engine everywhere."""
     import os
 
@@ -63,7 +63,7 @@ def _center(q: jax.Array, p: jax.Array, p_mask: jax.Array | None):
 
 
 def sq_dists(q: jax.Array, p: jax.Array) -> jax.Array:
-    """(Q, 3) x (P, 3) -> (Q, P) squared distances on the MXU."""
+    """(Q, 3) x (P, 3) -> (Q, P) squared distances via one matmul."""
     qq = jnp.sum(q * q, axis=-1, keepdims=True)
     pp = jnp.sum(p * p, axis=-1, keepdims=True)
     qp = jnp.dot(
@@ -178,12 +178,6 @@ def radius_neighbors(
     r2 = jnp.float32(radius * radius)
     k_eff = min(k, p.shape[0])
 
-    # NOTE (r4 negative result, docs/PROFILE_r4.md): a fused Pallas
-    # running-top-k kernel (k-pass min-extraction in VMEM) measured SLOWER
-    # than lax.top_k here (287 vs 252 ms for the 26-NN at 32k x 32k) —
-    # each extraction pass is a full-width lane reduction, so k passes
-    # cost ~k*log(width) ops per candidate. top_k / approx_max_k are
-    # within noise of each other and near the practical VPU floor.
 
     def tile_fn(q_slab):
         d2 = sq_dists(q_slab, pc)
@@ -191,18 +185,7 @@ def radius_neighbors(
             d2 = jnp.where(p_mask[None, :], d2, BIG)
         if exclude_self:
             d2 = jnp.where(d2 <= 1e-12, BIG, d2)
-        if _use_approx_topk():
-            # TPU PartialReduce k-selection (lax.approx_max_k): the
-            # hardware top-k. recall_target=1.0 keeps it EXACT — XLA still
-            # lowers it ~2x faster than lax.top_k's full sort at these
-            # widths. Results come back score-sorted, nearest first, same
-            # as top_k.
-            neg, idx = jax.lax.approx_max_k(
-                -d2, k_eff, recall_target=1.0,
-                reduction_input_size_override=-1,
-            )
-        else:
-            neg, idx = jax.lax.top_k(-d2, k_eff)
+        neg, idx = jax.lax.top_k(-d2, k_eff)
         d2k = -neg
         valid = d2k <= r2
         return idx.astype(jnp.int32), d2k, valid
@@ -214,41 +197,6 @@ def radius_neighbors(
         d2k = jnp.pad(d2k, ((0, 0), (0, pad)), constant_values=BIG)
         valid = jnp.pad(valid, ((0, 0), (0, pad)))
     return idx, d2k, valid, jnp.zeros((), jnp.int32)
-
-
-def _use_approx_topk() -> bool:
-    """TPU-only k-selection via lax.approx_max_k (PartialReduce) at
-    recall_target=1.0 — exact contents, hardware-lowered. Tie ORDER among
-    equal distances may differ from lax.top_k, so the CPU/test path keeps
-    top_k (the grid-engine exact-match tests pin against it). Env
-    MAPMERGE_APPROX_TOPK=0|1 forces either way."""
-    import os
-
-    env = os.environ.get("MAPMERGE_APPROX_TOPK", "auto")
-    if env == "0":
-        return False
-    if env == "1":
-        return True
-    try:
-        return jax.default_backend() == "tpu"
-    except Exception:
-        return False
-
-
-def _use_pallas() -> bool:
-    """Compiled Pallas kernels only on TPU; XLA path elsewhere (tests run
-    the Pallas path through the interpreter explicitly, tests/test_pallas)."""
-    import os
-
-    env = os.environ.get("MAPMERGE_PALLAS", "auto")
-    if env == "0":
-        return False
-    if env == "1":
-        return True
-    try:
-        return jax.default_backend() == "tpu"
-    except Exception:
-        return False
 
 
 def nearest_neighbor(
@@ -264,16 +212,16 @@ def nearest_neighbor(
     """Exact 1-NN: (idx (Q,), squared distance (Q,), overflow () int32).
 
     Backs ICP correspondence search and transformScore (reference
-    src/matching.cpp:196-221, 259-268). On TPU this dispatches to the
-    fused Pallas kernel (pallas/nn.py); the tiled XLA path below is the
-    portable fallback and the parity oracle.
+    src/matching.cpp:196-221, 259-268). On the GPU the dense path is the
+    fused kernel (pallas/nn.py); on the CPU it is the tiled jnp path
+    below (pallas.use_kernels decides).
 
     With `bound` given, matches beyond it may be reported with d2 = BIG —
     exact for consumers that discard matches past the bound (ICP, score).
     A bound is required for the grid engine; without one, large clouds
     stay on the dense path. `overflow` counts queries the grid engine
     dropped at its query-side bucket cap — those come back unmatched
-    (d2 = BIG); 0 on the dense/Pallas paths. `q_mask` marks the queries
+    (d2 = BIG); 0 on the dense paths. `q_mask` marks the queries
     that actually need answers: masked-out queries are excluded from the
     overflow count (they return the unmatched default either way).
     """
@@ -286,7 +234,7 @@ def nearest_neighbor(
             q, p, bound=bound, p_mask=p_mask, scan_cap=scan_cap,
             q_mask=q_mask,
         )
-    if _use_pallas():
+    if pallas.use_kernels():
         from mapmerge_tpu.pallas.nn import nearest_neighbor_pallas
 
         idx, d2 = nearest_neighbor_pallas(q, p, p_mask)
@@ -317,7 +265,7 @@ def radius_reduce(
 ) -> tuple[jax.Array, jax.Array, jax.Array]:
     """Reduce `values` (P, C) over each query's radius neighborhood.
 
-    reduce="sum": returns (count (Q,), sums (Q, C), overflow) via one MXU
+    reduce="sum": returns (count (Q,), sums (Q, C), overflow) via one
     matmul per tile (w @ values with w the within-radius {0,1} matrix).
     reduce="max": returns (count (Q,), maxes (Q, C), overflow) via masked
     max. The workhorse behind Harris response accumulation and non-max
@@ -371,7 +319,7 @@ def neighbor_moments(
 
     Returns (count (Q,), mean (Q, 3), cov (Q, 3, 3), overflow () int32)
     where cov is the neighborhood covariance — everything NormalEstimation
-    needs (reference src/features.cpp:168-179), computed entirely as MXU
+    needs (reference src/features.cpp:168-179), computed entirely as
     matmuls: w @ 1, w @ p, and w @ (p ⊗ p) with w the {0,1} within-radius
     matrix. `overflow` counts grid-engine query-bucket drops (0 dense).
     """

@@ -1,10 +1,10 @@
 """Surface-normal + curvature estimation.
 
-TPU-native equivalent of pcl::NormalEstimation as used by the reference
+JAX equivalent of pcl::NormalEstimation as used by the reference
 (map_merge_3d/src/features.cpp:168-179): per-point PCA over the radius
 neighborhood, normal = smallest-eigenvalue eigenvector, curvature =
 l0 / (l0 + l1 + l2), normals flipped towards the viewpoint (PCL default
-viewpoint = origin). Neighborhood moments are MXU matmuls
+viewpoint = origin). Neighborhood moments are matmuls
 (ops/neighbors.neighbor_moments); the eigen solve is closed-form
 (ops/eigh3), so the whole op is one fused XLA program — no kd-tree.
 """

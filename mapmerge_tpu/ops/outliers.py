@@ -1,6 +1,6 @@
 """Radius outlier removal.
 
-TPU-native equivalent of pcl::RadiusOutlierRemoval as used by the reference
+JAX equivalent of pcl::RadiusOutlierRemoval as used by the reference
 (map_merge_3d/src/features.cpp:31-43): drop points with fewer than
 `min_neighbors` points within `radius`. PCL's radiusSearch counts the query
 point itself (the query is drawn from the same cloud), so we do too.

@@ -1,6 +1,6 @@
 """Batched-hypothesis RANSAC over correspondences.
 
-TPU-native equivalent of pcl::registration::CorrespondenceRejectorSampleConsensus
+JAX equivalent of pcl::registration::CorrespondenceRejectorSampleConsensus
 + TransformationEstimationSVD re-estimation (reference
 src/matching.cpp:110-140). PCL iterates hypotheses sequentially with early
 exit; here ALL hypotheses are drawn, solved (closed-form 3-point Kabsch,

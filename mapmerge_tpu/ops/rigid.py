@@ -1,6 +1,6 @@
 """Weighted rigid (SE(3)) alignment — batched, closed-form.
 
-TPU-native equivalent of pcl::registration::TransformationEstimationSVD
+JAX equivalent of pcl::registration::TransformationEstimationSVD
 (reference src/matching.cpp:135-137, Umeyama without scale): least-squares
 rotation+translation from weighted point correspondences.
 

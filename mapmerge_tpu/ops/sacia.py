@@ -1,6 +1,6 @@
 """SAC-IA: sample-consensus initial alignment.
 
-TPU-native equivalent of pcl::SampleConsensusInitialAlignment as configured
+JAX equivalent of pcl::SampleConsensusInitialAlignment as configured
 by the reference (src/matching.cpp:142-194, 242-247):
   - min_sample_distance = inlier_threshold,
   - max_correspondence_distance, max_iterations from params.
@@ -9,7 +9,7 @@ PCL draws one sample triple per sequential iteration; here all
 `num_iterations` hypotheses are drawn, solved and scored in one batched
 program:
   1. per source keypoint, the k nearest target keypoints in DESCRIPTOR
-     space are precomputed (one MXU distance matrix + top-k);
+     space are precomputed (one matmul distance matrix + top-k);
   2. each hypothesis samples 3 distinct source keypoints (Gumbel top-k),
      enforcing PCL's minimum pairwise sample distance by invalidating
      violating hypotheses instead of resampling;

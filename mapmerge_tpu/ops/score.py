@@ -1,6 +1,6 @@
 """Transform validation score.
 
-TPU-native equivalent of pcl::registration::TransformationValidationEuclidean
+JAX equivalent of pcl::registration::TransformationValidationEuclidean
 as used by the reference (src/matching.cpp:259-268): mean squared
 nearest-neighbor distance from the transformed source cloud to the target,
 counting only pairs closer than `max_range`; returns a huge score when no

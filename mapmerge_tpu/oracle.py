@@ -6,14 +6,14 @@ CPU with scipy cKDTree standing in for pcl::search::KdTree — the same stage
 order, the same algorithms (VoxelGrid, RadiusOutlierRemoval,
 NormalEstimation, SIFT3D/Harris3D, PFH/FPFH, reciprocal k-NN matching,
 RANSAC + SVD, fixed-bound ICP, TransformationValidationEuclidean), with no
-neighbor caps and no TPU-shape compromises.
+neighbor caps and no fixed-shape compromises.
 
 It exists for two reasons (VERDICT r1 item 1):
   1. an honest wall-clock baseline: the reference publishes no numbers
      (BASELINE.md), so the measured wall-clock of this kd-tree pipeline is
      the PCL stand-in that bench.py's `vs_baseline` is anchored to;
   2. golden poses: its estimated SE(3) transforms are frozen as golden data
-     (golden/*.json) that the TPU pipeline must match within tolerance.
+     (golden/*.json) that the JAX pipeline must match within tolerance.
 
 Everything here is plain numpy/scipy — no JAX — so it measures what a
 classic CPU implementation costs, not what our own ops cost on host.

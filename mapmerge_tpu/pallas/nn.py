@@ -1,24 +1,26 @@
-"""Fused Pallas TPU kernel: exact 1-nearest-neighbor.
+"""Fused exact 1-nearest-neighbour kernel (Pallas, Triton route).
 
-The XLA path (ops/neighbors.nearest_neighbor) materializes a (tile, P)
-squared-distance slab in HBM per query tile, then reduces it — for the
-32k x 32k clouds of the default operating point that is ~8 GB of HBM
-traffic per ICP iteration, and ICP calls it every iteration
-(reference analog: the kd-tree query inside pcl::IterativeClosestPoint,
+ICP correspondence search and transformScore query every source point
+against the whole target cloud on every iteration (reference analog: the
+kd-tree query inside pcl::IterativeClosestPoint,
 map_merge_3d/src/matching.cpp:196-221, and the validator
-src/matching.cpp:259-268). This kernel fuses distance computation and the
-running (min, argmin) reduction in VMEM so the only HBM traffic is the
-points themselves: Q*3 reads + (Q/TQ)*P*3 streamed reads + Q outputs.
+src/matching.cpp:259-268). The plain path (ops/neighbors.nearest_neighbor)
+writes a (tile, P) squared-distance slab to device memory per query tile
+and reduces it. This kernel keeps the running (min, argmin) of a block of
+queries in registers while it loops over target tiles, so device memory
+sees only the points themselves and the Q results. Tile sizes were chosen
+by scripts/kernel_sweep.py on an H100 (PERF.md).
 
-Distances use the direct (q-p)^2 expansion on the VPU (no MXU: the
-contraction dim is 3, so a matmul formulation wastes 125/128 of the
-systolic array and the kernel is bandwidth-bound anyway); it is also
-numerically stronger than the |q|^2+|p|^2-2qp identity, so no centering
-pass is needed.
+Distances use the direct (q-p)^2 expansion: it is exact enough without
+the centering pass the matmul identity |q|^2+|p|^2-2qp needs, and a
+contraction over 3 components gains nothing from the tensor cores.
 
-Grid is (Q tiles, P tiles) with P innermost: the per-Q-tile running best
-lives in VMEM scratch and is flushed on the last P step. Tie-breaking
-matches jnp.argmin (first occurrence) both within and across P tiles.
+Layout: one program per block of `tile_q` queries; targets arrive as one
+component-major (4, P) array [x, y, z, mask penalty], so every load is a
+power-of-two row slice, as Triton requires. Ties break to the first
+occurrence (jnp.argmin semantics): strictly-better updates keep each
+lane's earliest tile, and the final cross-lane reduction takes the
+smallest index at the minimum.
 """
 
 from __future__ import annotations
@@ -28,119 +30,145 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 #: squared-distance penalty for masked target points (matches
 #: ops/neighbors.BIG)
 BIG = 1.0e12
+#: coordinate of padded query rows (far from every real point)
+_PAD_Q = 1.0e8
 
 
-def _nn_kernel(q_ref, pt_ref, mask_ref, idx_ref, d2_ref, best_d2, best_idx):
-    j = pl.program_id(1)
-    tp = pt_ref.shape[1]
+def _nn_kernel(q_ref, p_ref, idx_ref, d2_ref, *, tile_p: int, n_tiles: int):
+    """q_ref (4, TQ) query block, p_ref (4, P) all targets; writes the
+    block's (TQ,) argmin indices and squared distances.
 
-    @pl.when(j == 0)
-    def _():
-        best_d2[:] = jnp.full_like(best_d2, jnp.inf)
-        best_idx[:] = jnp.zeros_like(best_idx)
+    The running (min, argmin) is kept per (query, lane) across target
+    tiles and reduced across lanes once at the end: a cross-lane argmin
+    per tile costs more than the distances themselves."""
+    qx = q_ref[0, :][:, None]
+    qy = q_ref[1, :][:, None]
+    qz = q_ref[2, :][:, None]
+    tq = qx.shape[0]
+    lane = jax.lax.broadcasted_iota(jnp.int32, (tq, tile_p), 1)
 
-    q = q_ref[:]  # (TQ, 3)
-    dx = q[:, 0:1] - pt_ref[0:1, :]
-    dy = q[:, 1:2] - pt_ref[1:2, :]
-    dz = q[:, 2:3] - pt_ref[2:3, :]
-    # mask penalty keeps invalid targets out without a select over idx
-    d2 = dx * dx + dy * dy + dz * dz + mask_ref[0:1, :]
+    def body(t, carry):
+        best_d2, best_idx = carry
+        sl = pl.ds(pl.multiple_of(t * tile_p, tile_p), tile_p)
+        dx = qx - p_ref[0, sl][None, :]
+        dy = qy - p_ref[1, sl][None, :]
+        dz = qz - p_ref[2, sl][None, :]
+        # the mask penalty keeps invalid targets out without a select
+        d2 = dx * dx + dy * dy + dz * dz + p_ref[3, sl][None, :]
+        better = d2 < best_d2  # strict: an earlier tile wins a tie
+        return (
+            jnp.where(better, d2, best_d2),
+            jnp.where(better, lane + t * tile_p, best_idx),
+        )
 
-    m = jnp.min(d2, axis=1, keepdims=True)  # (TQ, 1)
-    col = jax.lax.broadcasted_iota(jnp.int32, d2.shape, 1)
-    local = jnp.min(
-        jnp.where(d2 <= m, col, tp), axis=1, keepdims=True
-    )  # first-occurrence argmin within the tile
-    better = m < best_d2[:]
-    best_idx[:] = jnp.where(better, local + j * tp, best_idx[:])
-    best_d2[:] = jnp.where(better, m, best_d2[:])
+    init = (
+        jnp.full((tq, tile_p), jnp.inf, jnp.float32),
+        jnp.zeros((tq, tile_p), jnp.int32),
+    )
+    best_d2, best_idx = jax.lax.fori_loop(0, n_tiles, body, init)
+    # first occurrence across lanes: the smallest index at the minimum
+    m = jnp.min(best_d2, axis=1)
+    idx_ref[:] = jnp.min(
+        jnp.where(best_d2 == m[:, None], best_idx, jnp.int32(2**31 - 1)),
+        axis=1,
+    )
+    d2_ref[:] = m
 
-    @pl.when(j == pl.num_programs(1) - 1)
-    def _():
-        idx_ref[:] = best_idx[:]
-        d2_ref[:] = best_d2[:]
 
-
-def _pad_rows(a: jax.Array, multiple: int, value: float) -> jax.Array:
-    n = a.shape[0]
-    pad = (-n) % multiple
+def _pad_cols(a: jax.Array, multiple: int, value: float) -> jax.Array:
+    pad = (-a.shape[-1]) % multiple
     if pad:
         a = jnp.concatenate(
-            [a, jnp.full((pad,) + a.shape[1:], value, a.dtype)], axis=0
+            [a, jnp.full(a.shape[:-1] + (pad,), value, a.dtype)], axis=-1
         )
     return a
 
 
 @functools.partial(
-    jax.jit, static_argnames=("tile_q", "tile_p", "interpret")
+    jax.jit,
+    static_argnames=("tile_q", "tile_p", "num_warps", "interpret"),
 )
 def nearest_neighbor_pallas(
     q: jax.Array,
     p: jax.Array,
     p_mask: jax.Array | None = None,
-    tile_q: int = 256,
-    tile_p: int = 2048,
+    tile_q: int = 32,
+    tile_p: int = 128,
+    num_warps: int = 4,
     interpret: bool = False,
 ) -> tuple[jax.Array, jax.Array]:
     """Exact 1-NN: (idx (Q,) int32, squared distance (Q,) f32).
 
-    Drop-in for ops/neighbors.nearest_neighbor on TPU. `interpret=True`
-    runs the same kernel through the Pallas interpreter (CPU testing).
-    """
-    orig_q = q.shape[0]
-    q = _pad_rows(q.astype(jnp.float32), tile_q, 1.0e8)
+    Drop-in for the dense path of ops/neighbors.nearest_neighbor.
+    `interpret=True` runs the same kernel through the Pallas interpreter
+    (CPU testing)."""
+    n_q = q.shape[0]
+    f32 = jnp.float32
     if p_mask is None:
-        mask_pen = jnp.zeros((p.shape[0],), jnp.float32)
+        pen = jnp.zeros((p.shape[0],), f32)
     else:
-        mask_pen = jnp.where(p_mask, 0.0, jnp.float32(BIG))
-    p = _pad_rows(p.astype(jnp.float32), tile_p, 0.0)
-    mask_pen = _pad_rows(mask_pen, tile_p, BIG)
+        pen = jnp.where(p_mask, 0.0, f32(BIG))
+    qt = _pad_cols(
+        jnp.concatenate([q.astype(f32).T, jnp.zeros((1, n_q), f32)]),
+        tile_q, _PAD_Q,
+    )  # (4, Qpad)
+    pt = jnp.concatenate(
+        [_pad_cols(p.astype(f32).T, tile_p, 0.0),
+         _pad_cols(pen[None, :], tile_p, BIG)]
+    )  # (4, Ppad); padded targets carry the mask penalty
+    n_tiles = pt.shape[1] // tile_p
 
-    pt = p.T  # (3, P): lanes along P for clean (sublane, lane) tiling
-    mask2 = mask_pen[None, :]  # (1, P)
-    nq, np_ = q.shape[0] // tile_q, p.shape[0] // tile_p
-
-    grid = (nq, np_)
+    kernel = functools.partial(_nn_kernel, tile_p=tile_p, n_tiles=n_tiles)
     idx, d2 = pl.pallas_call(
-        _nn_kernel,
-        grid=grid,
+        kernel,
+        grid=(qt.shape[1] // tile_q,),
         in_specs=[
-            pl.BlockSpec(
-                (tile_q, 3), lambda i, j: (i, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (3, tile_p), lambda i, j: (0, j), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (1, tile_p), lambda i, j: (0, j), memory_space=pltpu.VMEM
-            ),
+            pl.BlockSpec((4, tile_q), lambda i: (0, i)),
+            pl.BlockSpec((4, pt.shape[1]), lambda i: (0, 0)),
         ],
         out_specs=[
-            pl.BlockSpec(
-                (tile_q, 1), lambda i, j: (i, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (tile_q, 1), lambda i, j: (i, 0), memory_space=pltpu.VMEM
-            ),
+            pl.BlockSpec((tile_q,), lambda i: (i,)),
+            pl.BlockSpec((tile_q,), lambda i: (i,)),
         ],
         out_shape=[
-            jax.ShapeDtypeStruct((q.shape[0], 1), jnp.int32),
-            jax.ShapeDtypeStruct((q.shape[0], 1), jnp.float32),
+            jax.ShapeDtypeStruct((qt.shape[1],), jnp.int32),
+            jax.ShapeDtypeStruct((qt.shape[1],), f32),
         ],
-        scratch_shapes=[
-            pltpu.VMEM((tile_q, 1), jnp.float32),
-            pltpu.VMEM((tile_q, 1), jnp.int32),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=8 * q.shape[0] * p.shape[0],
-            bytes_accessed=4 * (q.shape[0] * 3 + nq * p.shape[0] * 4),
-            transcendentals=0,
-        ),
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps, num_stages=2),
         interpret=interpret,
-    )(q, pt, mask2)
-    return idx[:orig_q, 0], d2[:orig_q, 0]
+        name="nearest_neighbor",
+    )(qt, pt)
+    return idx[:n_q], d2[:n_q]
+
+
+@functools.partial(jax.jit, static_argnames=("tile",))
+def nearest_neighbor_direct(
+    q: jax.Array,
+    p: jax.Array,
+    p_mask: jax.Array | None = None,
+    tile: int = 1024,
+) -> tuple[jax.Array, jax.Array]:
+    """Plain jnp 1-NN in the kernel's own direct-difference arithmetic:
+    the float32 reference the kernel is checked against, and the version
+    XLA compiles on its own that the kernel has to beat."""
+    from mapmerge_tpu.ops.neighbors import tiled_query
+
+    q = q.astype(jnp.float32)
+    p = p.astype(jnp.float32)
+    pen = (
+        jnp.zeros((p.shape[0],), jnp.float32)
+        if p_mask is None
+        else jnp.where(p_mask, 0.0, jnp.float32(BIG))
+    )
+
+    def tile_fn(q_slab):
+        d = q_slab[:, None, :] - p[None, :, :]
+        d2 = jnp.sum(d * d, axis=-1) + pen[None, :]
+        return jnp.argmin(d2, axis=-1).astype(jnp.int32), jnp.min(d2, axis=-1)
+
+    return tiled_query(q, p, tile_fn, tile)

@@ -1,11 +1,13 @@
 """Device mesh utilities.
 
-The TPU replacement for the reference's distribution story (SURVEY.md §2c):
+The replacement for the reference's distribution story (SURVEY.md §2c):
 where map_merge_3d parallelizes nothing (sequential per-cloud loops +
 sequential O(N^2) pair loop, map_merging.cpp:211-269) and distributes only
 via ROS topic transport, this framework shards the cloud batch axis and the
-registration pair axis over a jax.sharding.Mesh, with XLA collectives over
-ICI. One mesh serves both stages.
+registration pair axis over a jax.sharding.Mesh, with XLA collectives
+(NCCL over NVLink between the GPUs of one host). Every GPU of a host
+reaches every other at the same rate, so the mesh is 1-D and follows the
+algorithm alone. One mesh serves both stages.
 """
 
 from __future__ import annotations

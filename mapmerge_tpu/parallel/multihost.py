@@ -1,11 +1,12 @@
 """Multi-host setup.
 
-TPU-native replacement for the reference's multi-master ROS story (the
+Replacement for the reference's multi-master ROS story (the
 reference delegates cross-host networking entirely to external packages,
-doc/wiki.txt:14): here hosts join one jax.distributed job, every host
-contributes its local chips to the global mesh, and the pair axis of the
-registration graph spans all of them (collectives ride ICI within a slice,
-DCN across hosts — XLA inserts them from the shardings).
+doc/wiki.txt:14): here processes join one jax.distributed job, every
+process contributes its GPU to the global mesh, and the pair axis of the
+registration graph spans all of them (collectives ride NVLink between the
+GPUs of one host and the network across hosts — XLA inserts them from the
+shardings).
 
 Each host ingests its own robots' maps (runtime/transport.py); the feature
 stage runs where the data lands, and the globally-sharded pair stage
@@ -23,14 +24,26 @@ def initialize(
     coordinator_address: str | None = None,
     num_processes: int | None = None,
     process_id: int | None = None,
+    processes_per_host: int = 1,
 ):
     """jax.distributed.initialize wrapper (no-op if already initialized or
-    single-process). Safe to call unconditionally at program start."""
+    single-process). Safe to call unconditionally at program start.
+
+    Run one process per GPU. A JAX process reserves most of the memory of
+    every card it opens, so when `processes_per_host` > 1 processes share
+    a host, process `process_id` opens only card
+    `process_id % processes_per_host` (jax.distributed's
+    local_device_ids); with one process per host it drives every card of
+    its host."""
+    kwargs = {}
+    if processes_per_host > 1 and process_id is not None:
+        kwargs["local_device_ids"] = [process_id % processes_per_host]
     try:
         jax.distributed.initialize(
             coordinator_address=coordinator_address,
             num_processes=num_processes,
             process_id=process_id,
+            **kwargs,
         )
     except RuntimeError as e:
         if "already initialized" not in str(e):
@@ -49,16 +62,16 @@ def is_coordinator() -> bool:
 def allgather_robot_maps(local: dict) -> dict:
     """Union of every host's latest robot maps.
 
-    This is the DCN map-ingest exchange SURVEY §2c promises: each host
+    This is the cross-host map-ingest exchange SURVEY §2c promises: each host
     ingests only its own robots' maps (runtime/transport.py), and before a
     global estimation tick the hosts exchange them so every process runs
-    the same SPMD program over the same global cloud batch — the TPU
+    the same SPMD program over the same global cloud batch — the
     analog of all robots' topics reaching the one merge node
     (map_merge_node.cpp:57-100).
 
     `local` maps robot name -> (xyz, rgb|None) numpy arrays. Byte blobs of
     each host's dict are padded to the global max and allgathered (a
-    host-side collective over DCN); the union is returned on every host.
+    host-side collective over the network); the union is returned on every host.
     COLLECTIVE: every process in the job must call this in lockstep.
     """
     if jax.process_count() == 1:

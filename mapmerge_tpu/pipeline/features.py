@@ -50,9 +50,9 @@ class CloudFeatures:
 
 
 #: capacity above which the feature stage runs as separately-jitted stages
-#: instead of one fused program: XLA's scheduling of the fused program keeps
-#: enough intermediates live to crash the TPU worker at ~1M-point capacity
-#: (measured), while the same stages run fine one jit at a time
+#: instead of one fused program, which bounds the intermediates live at
+#: once. Chosen on the earlier accelerator (16 GB of device memory); not
+#: measured on the H100.
 STAGED_THRESHOLD = 1 << 19
 
 
@@ -62,7 +62,7 @@ def extract_features_staged(
     """extract_features with each stage its own jit (big-cloud path).
 
     Identical math to extract_features; intermediates of one stage are
-    released before the next compiles/runs, bounding peak HBM."""
+    released before the next compiles/runs, bounding peak device memory."""
     resized, dropped = _jit_downsample(cloud, params)
     # probe BEFORE outlier removal: the outlier pass itself queries this
     # cloud (its query overflow silently zeroes counts), and every later

@@ -4,7 +4,7 @@ The reference re-runs the FULL O(N^2) pairwise estimation on every
 estimation tick (src/map_merge_node.cpp:141-142 -> map_merging.cpp:188-275)
 — stateless and robust, but quadratic in robots and linear in ticks: a
 50-robot stream pays ~1225 pairwise registrations per tick. This module is
-the TPU-native incremental alternative the batched design makes cheap:
+the incremental alternative the batched design makes cheap:
 
   - registered maps form a WORLD MODEL: their keypoint descriptors,
     concatenated in one fixed-capacity device array (one matmul matches a

@@ -1,6 +1,6 @@
 """Online incremental merge node.
 
-TPU-native equivalent of the reference's ROS node runtime (class MapMerge3d,
+JAX equivalent of the reference's ROS node runtime (class MapMerge3d,
 src/map_merge_node.cpp + include/map_merge_3d/map_merge_node.h): three
 rate-decoupled periodic jobs —
 
@@ -165,7 +165,7 @@ class MapMergeNode:
 
     def _global_maps(self, kept: list[str], raw: list):
         """Union of all hosts' snapshots when the node's mesh spans
-        processes (per-host ingest -> DCN exchange -> identical SPMD input
+        processes (per-host ingest -> cross-host exchange -> identical SPMD input
         on every host; parallel/multihost.py). Single-process: identity.
 
         COLLECTIVE in multi-process mode — every host's node must drive

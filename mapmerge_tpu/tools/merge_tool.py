@@ -37,7 +37,9 @@ def main(argv: list[str] | None = None) -> int:
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jaxcache")
+    from mapmerge_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from mapmerge_tpu.core.params import MergeParams
     from mapmerge_tpu.io.pcd import read_pcd_arrays, write_pcd

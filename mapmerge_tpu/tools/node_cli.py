@@ -105,9 +105,9 @@ def main(argv: list[str] | None = None) -> int:
     }
     run_seconds = settings["run_seconds"]
 
-    import jax
+    from mapmerge_tpu.utils.compile_cache import enable_compile_cache
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jaxcache")
+    enable_compile_cache()
 
     from mapmerge_tpu.io.pcd import write_pcd
     from mapmerge_tpu.runtime.node import MapMergeNode

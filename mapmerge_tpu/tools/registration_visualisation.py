@@ -47,7 +47,9 @@ def main(argv: list[str] | None = None) -> int:
     import jax
     import jax.numpy as jnp
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jaxcache")
+    from mapmerge_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from mapmerge_tpu.core import transforms as tf
     from mapmerge_tpu.core.cloud import PointCloud

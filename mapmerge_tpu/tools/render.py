@@ -2,7 +2,7 @@
 
 The reference ships interactive PCL viewers for clouds, normals, keypoints,
 correspondence lines, and the aligned overlay
-(map_merge_3d/src/visualise.cpp:20-95); a TPU VM has no display, so these
+(map_merge_3d/src/visualise.cpp:20-95); a headless accelerator host has no display, so these
 are the headless equivalents: matplotlib (Agg) orthographic scatter renders
 a human can open. Each function writes one PNG and returns its path.
 

@@ -5,9 +5,7 @@ The reference's observability is ROS_DEBUG logging plus one quality scalar
 gap to exceed. This module is the first-class replacement: a thread-safe
 registry of counters, gauges, and stage-timing summaries that the online
 node (runtime/node.py) feeds every tick, snapshottable as one structured
-dict and optionally streamed to a JSONL sink for offline analysis
-(scripts/bench_history.py is the companion round-over-round reader for the
-committed bench artifacts).
+dict and optionally streamed to a JSONL sink for offline analysis.
 
 Design: plain host-side Python — metrics are control-plane data (tick
 durations, map counts, overflow counters already surfaced by the pipeline),

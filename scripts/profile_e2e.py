@@ -1,14 +1,23 @@
-"""Host-side breakdown of one estimate_maps_transforms call (dev tool)."""
+"""Host-side breakdown of one estimate_maps_transforms call (dev tool).
 
+Usage, from the repo root: python scripts/profile_e2e.py
+"""
+
+import os
+import sys
 import time
 
-import jax
-import jax.numpy as jnp
-import numpy as np
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jaxcache")
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
 
-import bench
+from mapmerge_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
+
+import bench  # noqa: E402
 from mapmerge_tpu.core.cloud import stack_clouds
 from mapmerge_tpu.pipeline.merging import (
     estimate_maps_transforms,

@@ -12,25 +12,24 @@ from functools import partial
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tests"))
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-import jax
-import numpy as np
+import jax  # noqa: E402
+import numpy as np  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jaxcache")
+from mapmerge_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 from synthetic import make_town, overlapping_views, rotation_z, se3  # noqa: E402
 
 from mapmerge_tpu.core.params import MergeParams  # noqa: E402
-from mapmerge_tpu.utils.profiling import device_sync  # noqa: E402
 
 
 def timeit(fn, *args, reps=3, warm=1, tag=""):
     for _ in range(warm):
-        out = fn(*args)
-        device_sync(out)
+        out = jax.block_until_ready(fn(*args))
     t0 = time.perf_counter()
     for _ in range(reps):
-        out = fn(*args)
-        device_sync(out)
+        out = jax.block_until_ready(fn(*args))
     dt = (time.perf_counter() - t0) / reps
     print(f"  {tag}: {dt:.3f} s")
     return out

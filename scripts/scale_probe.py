@@ -1,4 +1,4 @@
-"""Scale probe: grid-engine feature stage + registration at large N on TPU.
+"""Scale probe: grid-engine feature stage + registration at large N.
 
 Not a test — a measurement harness for the 500k-point scale path
 (VERDICT r1 item 2 'Done' criterion: feature stage + ICP on a 500k-pt
@@ -16,17 +16,18 @@ import time
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tests"))
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-import jax
-import numpy as np
+import jax  # noqa: E402
+import numpy as np  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jaxcache")
+from mapmerge_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 from synthetic import make_town, overlapping_views, rotation_z, se3  # noqa: E402
 
 from mapmerge_tpu.core import transforms as tf  # noqa: E402
 from mapmerge_tpu.core.cloud import PointCloud  # noqa: E402
 from mapmerge_tpu.core.params import MergeParams  # noqa: E402
-from mapmerge_tpu.utils.profiling import device_sync  # noqa: E402
 
 
 def main():
@@ -65,13 +66,13 @@ def main():
     def run_once(tag):
         t0 = time.perf_counter()
         fa = extract_features(va, params)
-        device_sync(fa)
+        jax.block_until_ready(fa)
         t1 = time.perf_counter()
         fb = extract_features(vb, params)
-        device_sync(fb)
+        jax.block_until_ready(fb)
         t2 = time.perf_counter()
         est = estimate_transform(fa, fb, params, jax.random.key(0))
-        device_sync(est.transform)
+        jax.block_until_ready(est.transform)
         t3 = time.perf_counter()
         print(
             f"[{tag}] features_a={t1-t0:.2f}s features_b={t2-t1:.2f}s "

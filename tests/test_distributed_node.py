@@ -1,10 +1,10 @@
 """Distributed online node: per-host ingest + global-mesh estimation.
 
 The reference's core scenario is N robots feeding ONE live merge node
-(src/map_merge_node.cpp:57-100). The multi-host TPU analog (SURVEY §2c,
+(src/map_merge_node.cpp:57-100). The multi-host analog (SURVEY §2c,
 VERDICT r2 item 6) runs one MapMergeNode per host: each host's transport
 ingests only its own robots' maps, an estimation tick exchanges them over
-DCN (parallel/multihost.allgather_robot_maps) so every process runs the
+the network (parallel/multihost.allgather_robot_maps) so every process runs the
 same SPMD program over the global mesh, and the graph solve replicates on
 every host. This test spawns 2 OS processes joined in one jax.distributed
 job, each feeding a DIFFERENT robot through its own DirectoryTransport,

@@ -184,7 +184,7 @@ class TestOverflowDetection:
         # estimate_maps_transforms surfaces a nonzero pair-stage counter as
         # a warning (the counter itself is pinned by the two tests above:
         # grid op level and through ICP; the organic end-to-end path was
-        # additionally driven on the real TPU — a 65k-pt indoor pair
+        # additionally driven on an accelerator — a 65k-pt indoor pair
         # reports ~142 truncated source queries and raising grid_scan_cap
         # silences it)
         import jax.numpy as jnp

@@ -119,19 +119,3 @@ def test_node_metrics_and_sink(tmp_path):
     # record is plain JSON (no numpy leakage)
     json.dumps(rec)
 
-
-def test_bench_history_tool(tmp_path, monkeypatch):
-    import importlib
-    import sys
-
-    sys.path.insert(0, "scripts")
-    try:
-        bh = importlib.import_module("bench_history")
-    finally:
-        sys.path.pop(0)
-    # runs over the real committed artifacts; writes docs/BENCH_HISTORY.md
-    rows = bh.config_rows()
-    assert isinstance(rows, list)
-    table = bh.fmt_table(["a", "b"], [[1, 2], [3, 4]])
-    assert table.splitlines()[0] == "| a | b |"
-    assert "| 3 | 4 |" in table

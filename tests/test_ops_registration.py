@@ -117,6 +117,35 @@ class TestMatching:
             else:
                 assert not valid[i], i
 
+    def test_reciprocal_oracle_at_capacity(self, rng):
+        """The same oracle at the fleet configs' padded keypoint capacity
+        (1024 slots, ~60% valid), jitted: the shape at which XLA's GPU
+        top_k over a transposed distance matrix returned wrong indices."""
+        n, k = 1024, 5
+        s_desc = rng.normal(size=(n, 33)).astype(np.float32)
+        t_desc = (s_desc + 0.3 * rng.normal(size=(n, 33))).astype(np.float32)
+        sv = rng.random(n) < 0.6
+        tv = rng.random(n) < 0.6
+        d2 = ((s_desc[:, None].astype(np.float64) - t_desc[None]) ** 2).sum(-1)
+        d2 = np.where(sv[:, None] & tv[None], d2, np.inf)
+        fwd = np.argsort(d2, axis=1, kind="stable")[:, :k]
+        back = np.argsort(d2.T, axis=1, kind="stable")[:, :k]
+        corr = jax.jit(find_correspondences, static_argnames=("k",))(
+            jnp.asarray(s_desc), jnp.asarray(t_desc), k=k,
+            source_valid=jnp.asarray(sv), target_valid=jnp.asarray(tv),
+        )
+        valid = np.asarray(corr.valid)
+        target = np.asarray(corr.target)
+        n_match = 0
+        for i in np.nonzero(sv)[0]:
+            hit = next((j for j in fwd[i] if tv[j] and i in back[j]), None)
+            assert valid[i] == (hit is not None), i
+            if hit is not None:
+                assert target[i] == hit, i
+                n_match += 1
+        assert not valid[~sv].any()
+        assert n_match > 0.5 * sv.sum()
+
     def test_masked_slots_excluded(self, rng):
         s_desc = rng.normal(size=(10, 4)).astype(np.float32)
         t_desc = rng.normal(size=(10, 4)).astype(np.float32)

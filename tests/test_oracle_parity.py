@@ -1,8 +1,8 @@
-"""TPU pipeline vs the CPU oracle (mapmerge_tpu/oracle.py).
+"""JAX pipeline vs the CPU oracle (mapmerge_tpu/oracle.py).
 
 The oracle is the faithful kd-tree implementation of the reference pipeline
 (same stage order as map_merging.cpp:188-275, scipy cKDTree for every
-neighbor query, no caps). These tests pin the TPU pipeline to it at the
+neighbor query, no caps). These tests pin the JAX pipeline to it at the
 POSE level — the parity target SURVEY.md §7 names (descriptor bit-equality
 is not required; SE(3) agreement within tolerance is).
 """
@@ -76,7 +76,7 @@ class TestDescriptorMethodParity:
     stable when keypoint neighborhoods are well populated — on sparse
     scenes BOTH pipelines degrade, which is fidelity, not a bug. RSD is
     matchable only through SAC-IA (2-d radii can't disambiguate reciprocal
-    k-NN; the TPU suite excludes it from MATCHABLE for the same reason)."""
+    k-NN; the JAX suite excludes it from MATCHABLE for the same reason)."""
 
     @staticmethod
     def _views():
@@ -93,7 +93,7 @@ class TestDescriptorMethodParity:
         theirs = estimate_maps_transforms_np(
             [va.to_arrays(), vb.to_arrays()], params, seed=0
         )
-        assert np.asarray(ours[1]).any(), "TPU registration failed"
+        assert np.asarray(ours[1]).any(), "JAX registration failed"
         assert np.asarray(theirs[1]).any(), "oracle registration failed"
         rot, trans = rel_pose_delta(ours, theirs)
         assert rot < 1.5, f"pose rotation disagrees with oracle: {rot} deg"

@@ -1,8 +1,11 @@
-"""Parity tests for the fused Pallas TPU kernels (interpreter mode on CPU).
+"""Parity tests for the Pallas kernels (Triton route) in interpret mode.
 
-The compiled kernels run only on TPU hardware (ops/neighbors dispatches on
-backend); here the same kernel bodies run through the Pallas interpreter
-and are checked against the tiled XLA path and a numpy oracle.
+The compiled kernels run on the GPU only (pallas.use_kernels picks them
+there); here the same kernel bodies run through the Pallas interpreter and
+are checked against the plain jnp paths and a numpy oracle.
+`chip_smoke.py` phase 2 runs the same checks on the card, compiled, at
+real widths. Tests marked `gpu` compile the kernels and skip without a
+card.
 """
 
 import numpy as np
@@ -10,8 +13,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
+from mapmerge_tpu.ops.descriptors.fpfh import spfh_tile_plain
 from mapmerge_tpu.ops.neighbors import nearest_neighbor
-from mapmerge_tpu.pallas.nn import nearest_neighbor_pallas
+from mapmerge_tpu.pallas import use_kernels
+from mapmerge_tpu.pallas.nn import nearest_neighbor_direct, nearest_neighbor_pallas
+from mapmerge_tpu.pallas.spfh import spfh_tile_pallas
 
 
 def _oracle(q, p, mask=None):
@@ -19,6 +25,11 @@ def _oracle(q, p, mask=None):
     if mask is not None:
         d[:, ~mask] = np.inf
     return d.argmin(1).astype(np.int32), d.min(1)
+
+
+def _unit(rng, shape):
+    v = rng.normal(size=shape).astype(np.float32)
+    return v / np.linalg.norm(v, axis=-1, keepdims=True)
 
 
 class TestPallasNN:
@@ -43,26 +54,37 @@ class TestPallasNN:
         np.testing.assert_array_equal(np.asarray(idx), ref_idx)
         np.testing.assert_allclose(np.asarray(d2), ref_d2, rtol=1e-5, atol=1e-6)
 
-    def test_matches_xla_path(self, rng):
+    @pytest.mark.parametrize(
+        "plain", ["matmul_identity", "direct"], ids=["xla_path", "direct"]
+    )
+    def test_matches_xla_path(self, rng, plain):
+        """The kernel agrees with both plain paths: the CPU's centered
+        matmul-identity path and the float32 direct-difference reference."""
         q = (rng.random((513, 3)) * 5).astype(np.float32)
         p = (rng.random((2050, 3)) * 5).astype(np.float32)
         mask = rng.random(2050) > 0.2
         idx_p, d2_p = nearest_neighbor_pallas(
             jnp.asarray(q), jnp.asarray(p), jnp.asarray(mask), interpret=True
         )
-        idx_x, d2_x, _ = jax.jit(nearest_neighbor)(
-            jnp.asarray(q), jnp.asarray(p), jnp.asarray(mask)
-        )
+        if plain == "direct":
+            idx_x, d2_x = nearest_neighbor_direct(
+                jnp.asarray(q), jnp.asarray(p), jnp.asarray(mask)
+            )
+        else:
+            idx_x, d2_x, _ = jax.jit(nearest_neighbor)(
+                jnp.asarray(q), jnp.asarray(p), jnp.asarray(mask)
+            )
         np.testing.assert_array_equal(np.asarray(idx_p), np.asarray(idx_x))
         np.testing.assert_allclose(
             np.asarray(d2_p), np.asarray(d2_x), rtol=1e-4, atol=1e-5
         )
 
     def test_tie_break_first_occurrence(self):
+        # all targets equidistant, across several target tiles
         q = np.zeros((1, 3), np.float32)
-        p = np.zeros((300, 3), np.float32)  # all targets equidistant
+        p = np.zeros((300, 3), np.float32)
         idx, d2 = nearest_neighbor_pallas(
-            jnp.asarray(q), jnp.asarray(p), interpret=True
+            jnp.asarray(q), jnp.asarray(p), tile_p=64, interpret=True
         )
         assert int(idx[0]) == 0
         assert float(d2[0]) == 0.0
@@ -92,86 +114,112 @@ class TestPallasNN:
 
 
 class TestPallasSPFH:
-    """Grid-SPFH sweep kernel (pallas/spfh.py) vs the XLA tile_fn math."""
+    """SPFH sweep kernel (pallas/spfh.py) vs the plain jnp sweep."""
 
-    def _xla_tile(self, q_xyz, q_nrm, cand_xyz, cand_nrm, cand_ok, r2):
-        from mapmerge_tpu.ops.descriptors.darboux import (
-            bin_index,
-            pair_features,
-        )
-
-        theta, alpha, phi, dist, pair_ok = pair_features(
-            q_xyz[:, :, None, :], q_nrm[:, :, None, :],
-            cand_xyz[:, None, :, :], cand_nrm[:, None, :, :],
-        )
-        d2 = dist * dist
-        w = (cand_ok[:, None, :] & pair_ok & (d2 <= r2)).astype(jnp.float32)
-        pi = float(np.pi)
-        t_i = bin_index(theta, -pi, pi, 11)
-        a_i = bin_index(alpha, -1.0, 1.0, 11)
-        p_i = bin_index(phi, -1.0, 1.0, 11)
-        cols = [
-            jnp.sum(w * (src == b), axis=-1)
-            for src in (t_i, a_i, p_i)
-            for b in range(11)
-        ]
-        hist = jnp.stack(cols, axis=-1)
-        total = jnp.sum(w, axis=-1)
-        scale = jnp.where(total > 0, 100.0 / jnp.maximum(total, 1.0), 0.0)
-        return hist * scale[..., None], total
-
-    def test_parity_vs_xla(self, rng):
-        from mapmerge_tpu.pallas.spfh import spfh_tile_pallas
-
-        B, Cq, M = 2, 16, 160
-        r = 0.8
-        q_xyz = rng.uniform(-1, 1, (B, Cq, 3)).astype(np.float32)
-        q_nrm = rng.normal(size=(B, Cq, 3)).astype(np.float32)
-        q_nrm /= np.linalg.norm(q_nrm, axis=-1, keepdims=True)
-        cand_xyz = rng.uniform(-1, 1, (B, M, 3)).astype(np.float32)
+    def _tile(self, rng, b, cq, m):
+        q_xyz = rng.uniform(-1, 1, (b, cq, 3)).astype(np.float32)
+        cand_xyz = rng.uniform(-1, 1, (b, m, 3)).astype(np.float32)
         # identical coordinates exercise the zero-distance self-hit
         # exclusion (PCL pairs a point with its neighbors, not itself)
-        cand_xyz[:, :Cq] = q_xyz
-        cand_nrm = rng.normal(size=(B, M, 3)).astype(np.float32)
-        cand_nrm /= np.linalg.norm(cand_nrm, axis=-1, keepdims=True)
-        cand_ok = rng.uniform(size=(B, M)) > 0.2
-
-        ref_h, ref_t = self._xla_tile(
-            jnp.asarray(q_xyz), jnp.asarray(q_nrm), jnp.asarray(cand_xyz),
-            jnp.asarray(cand_nrm), jnp.asarray(cand_ok), r * r,
+        cand_xyz[:, :cq] = q_xyz
+        return (
+            q_xyz, _unit(rng, (b, cq, 3)), cand_xyz, _unit(rng, (b, m, 3)),
+            rng.uniform(size=(b, m)) > 0.2,
         )
+
+    @pytest.mark.parametrize("block_q, chunk", [(8, 32), (16, 64)])
+    def test_parity_vs_xla(self, rng, block_q, chunk):
+        r = 0.8
+        args = [jnp.asarray(a) for a in self._tile(rng, 2, 16, 160)]
+        ref_h, ref_t = spfh_tile_plain(*args, r2=r * r)
         got_h, got_t = spfh_tile_pallas(
-            jnp.asarray(q_xyz), jnp.asarray(q_nrm), jnp.asarray(cand_xyz),
-            jnp.asarray(cand_nrm), jnp.asarray(cand_ok),
-            r2=r * r, chunk=128, interpret=True,
+            *args, r2=r * r, block_q=block_q, chunk=chunk, interpret=True
         )
         np.testing.assert_allclose(np.asarray(got_t), np.asarray(ref_t))
-        # identical bin membership incl. the sector-test theta binning
+        # same bin membership: the kernel runs the plain path's arithmetic
+        # (a pair exactly on a bin edge could round either way; random
+        # data puts none there)
+        np.testing.assert_allclose(
+            np.asarray(got_h), np.asarray(ref_h), atol=2e-3
+        )
+
+    def test_shared_candidates(self, rng):
+        """Dense mode: one candidate array (leading dim 1) serves every
+        query slab, and query rows beyond a block are padded and dropped."""
+        q_xyz, q_nrm, c_xyz, c_nrm, c_ok = self._tile(rng, 3, 24, 200)
+        args = [
+            jnp.asarray(a)
+            for a in (q_xyz, q_nrm, c_xyz[:1], c_nrm[:1], c_ok[:1])
+        ]
+        ref_h, ref_t = spfh_tile_plain(*args, r2=0.5)
+        got_h, got_t = spfh_tile_pallas(
+            *args, r2=0.5, block_q=16, chunk=64, interpret=True
+        )
+        assert got_h.shape == (3, 24, 33) and got_t.shape == (3, 24)
+        np.testing.assert_allclose(np.asarray(got_t), np.asarray(ref_t))
         np.testing.assert_allclose(
             np.asarray(got_h), np.asarray(ref_h), atol=2e-3
         )
 
     def test_chunk_padding_invariance(self, rng):
-        from mapmerge_tpu.pallas.spfh import spfh_tile_pallas
-
-        B, Cq, M = 1, 8, 100  # M not a chunk multiple -> lane padding
+        B, Cq, M = 1, 8, 100  # M not a chunk multiple -> padding
         q_xyz = rng.uniform(-1, 1, (B, Cq, 3)).astype(np.float32)
         q_nrm = np.tile(
             np.asarray([0.0, 0.0, 1.0], np.float32), (B, Cq, 1)
         )
         cand_xyz = rng.uniform(-1, 1, (B, M, 3)).astype(np.float32)
-        cand_nrm = rng.normal(size=(B, M, 3)).astype(np.float32)
-        cand_nrm /= np.linalg.norm(cand_nrm, axis=-1, keepdims=True)
+        cand_nrm = _unit(rng, (B, M, 3))
         cand_ok = np.ones((B, M), bool)
-        a = spfh_tile_pallas(
-            jnp.asarray(q_xyz), jnp.asarray(q_nrm), jnp.asarray(cand_xyz),
-            jnp.asarray(cand_nrm), jnp.asarray(cand_ok),
-            r2=1.0, chunk=128, interpret=True,
-        )
-        b = spfh_tile_pallas(
-            jnp.asarray(q_xyz), jnp.asarray(q_nrm), jnp.asarray(cand_xyz),
-            jnp.asarray(cand_nrm), jnp.asarray(cand_ok),
-            r2=1.0, chunk=256, interpret=True,
-        )
+        args = [
+            jnp.asarray(a) for a in (q_xyz, q_nrm, cand_xyz, cand_nrm, cand_ok)
+        ]
+        a = spfh_tile_pallas(*args, r2=1.0, chunk=32, interpret=True)
+        b = spfh_tile_pallas(*args, r2=1.0, chunk=128, interpret=True)
         np.testing.assert_allclose(np.asarray(a[0]), np.asarray(b[0]), atol=1e-4)
         np.testing.assert_allclose(np.asarray(a[1]), np.asarray(b[1]))
+
+
+class TestKernelChoice:
+    @pytest.mark.parametrize(
+        "platform, expected", [("gpu", True), ("cpu", False)]
+    )
+    def test_platform_picks_path(self, platform, expected):
+        assert use_kernels(platform) is expected
+
+    @pytest.mark.parametrize("platform", ["rocm", "METAL", "neuron"])
+    def test_unknown_platform_raises(self, platform):
+        with pytest.raises(ValueError, match="no kernel route"):
+            use_kernels(platform)
+
+    def test_cpu_run_never_picks_the_kernel(self, rng, monkeypatch):
+        """On the CPU backend the dispatch takes the plain path: the
+        compiled kernel entry point is never called."""
+        import mapmerge_tpu.pallas.nn as nn
+
+        assert jax.default_backend() == "cpu" and not use_kernels()
+
+        def boom(*a, **k):
+            raise AssertionError("kernel called on the CPU")
+
+        monkeypatch.setattr(nn, "nearest_neighbor_pallas", boom)
+        q = jnp.asarray(rng.random((20, 3)), jnp.float32)
+        idx, _, _ = nearest_neighbor(q, q)
+        np.testing.assert_array_equal(np.asarray(idx), np.arange(20))
+
+
+@pytest.mark.gpu
+def test_compiled_kernels_match_plain_on_gpu(rng):
+    """The compiled kernels (no interpreter) agree with the plain paths."""
+    if jax.default_backend() != "gpu":
+        pytest.skip("needs a GPU: the compiled Triton kernels run on CUDA only")
+    q = jnp.asarray(rng.random((4096, 3)) * 10, jnp.float32)
+    p = jnp.asarray(rng.random((5000, 3)) * 10, jnp.float32)
+    idx, d2 = nearest_neighbor_pallas(q, p)
+    ref_idx, ref_d2 = nearest_neighbor_direct(q, p)
+    np.testing.assert_allclose(np.asarray(d2), np.asarray(ref_d2), rtol=1e-5)
+    assert np.mean(np.asarray(idx) == np.asarray(ref_idx)) > 0.999
+    args = [jnp.asarray(a) for a in TestPallasSPFH()._tile(rng, 4, 128, 3456)]
+    got_h, got_t = spfh_tile_pallas(*args, r2=0.64)
+    ref_h, ref_t = spfh_tile_plain(*args, r2=0.64)
+    np.testing.assert_allclose(np.asarray(got_t), np.asarray(ref_t))
+    np.testing.assert_allclose(np.asarray(got_h), np.asarray(ref_h), atol=2e-3)
