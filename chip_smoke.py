@@ -7,7 +7,8 @@ poses (golden/) or the plain jnp reference:
 
   1 device   JAX's first device is a GPU (never falls back to the CPU)
   2 kernels  each Pallas kernel vs its plain jnp reference at real widths,
-             timed against the plain version XLA compiles
+             timed against the plain version XLA compiles; descriptor
+             matching at 1024 slots vs a numpy oracle
   3 pair     the bench.py 50k-pt pair (SIFT+FPFH+RANSAC+ICP), twice, then
              compose_maps
   4 fleet    config2's 5 maps of ~1.15M points (staged features, grid
@@ -252,6 +253,87 @@ def check_spfh(got, ref, args) -> tuple[int, int]:
     return len(bad), n_moved
 
 
+def matching_data(n: int = 1024, seed: int = 0):
+    """Descriptor sets at the fleet configs' padded keypoint capacity
+    (1024 slots, ~60% valid): targets are noisy copies of the sources."""
+    rng = np.random.default_rng(seed)
+    s = rng.normal(size=(n, 33)).astype(np.float32)
+    t = (s + 0.3 * rng.normal(size=(n, 33))).astype(np.float32)
+    return s, t, rng.random(n) < 0.6, rng.random(n) < 0.6
+
+
+def check_matching(corr, s, t, sv, tv, k: int = 5) -> int:
+    """find_correspondences vs a float64 numpy oracle of the reciprocal
+    first-match rule. Returns the number of matches."""
+    d2 = ((s[:, None].astype(np.float64) - t[None]) ** 2).sum(-1)
+    d2 = np.where(sv[:, None] & tv[None], d2, np.inf)
+    fwd = np.argsort(d2, axis=1, kind="stable")[:, :k]
+    back = np.argsort(d2.T, axis=1, kind="stable")[:, :k]
+    valid, target = np.asarray(corr.valid), np.asarray(corr.target)
+    assert not valid[~sv].any(), "a masked source slot matched"
+    n = 0
+    for i in np.nonzero(sv)[0]:
+        hit = next((j for j in fwd[i] if tv[j] and i in back[j]), None)
+        assert valid[i] == (hit is not None), f"source {i}: match {valid[i]}"
+        if hit is not None:
+            assert target[i] == hit, f"source {i}: target {target[i]} != {hit}"
+            n += 1
+    return n
+
+
+def transposed_topk_rows_wrong(s, t, sv, tv, k: int = 5) -> int:
+    """Rows of XLA's top_k over a masked, transposed distance matrix
+    (the form find_correspondences used to take) that differ from numpy.
+    Informational: on the GPU this form has returned wrong indices."""
+    import jax
+    import jax.numpy as jnp
+
+    from mapmerge_tpu.ops.matching import descriptor_sq_dists
+
+    @jax.jit
+    def both_ways(a, b, av, bv):
+        d2 = descriptor_sq_dists(a, b)
+        d2 = jnp.where(bv[None, :], d2, 1.0e12)
+        d2 = jnp.where(av[:, None], d2, 1.0e12)
+        # the forward top_k in the same program is part of the repro
+        return jax.lax.top_k(-d2, k)[1], jax.lax.top_k(-d2.T, k)[1]
+
+    got = np.asarray(both_ways(*(jnp.asarray(x) for x in (s, t, sv, tv)))[1])
+    d2 = np.asarray(descriptor_sq_dists(jnp.asarray(s), jnp.asarray(t)))
+    d2 = np.where(sv[:, None] & tv[None], d2, 1.0e12)
+    ref = np.argsort(d2.T, axis=1, kind="stable")[:, :k]
+    return int((got[tv] != ref[tv]).any(-1).sum())
+
+
+def run_matching():
+    """Reciprocal descriptor matching at 1024 slots on the card, and a
+    bare top_k over a transposed matrix, both against numpy."""
+    import jax
+    import jax.numpy as jnp
+
+    from mapmerge_tpu.ops.matching import find_correspondences
+
+    s, t, sv, tv = matching_data()
+    corr = jax.jit(find_correspondences, static_argnames=("k",))(
+        *(jnp.asarray(x) for x in (s, t)), k=5,
+        source_valid=jnp.asarray(sv), target_valid=jnp.asarray(tv),
+    )
+    n = check_matching(corr, s, t, sv, tv)
+    x = np.random.default_rng(1).random((1024, 1024)).astype(np.float32)
+    _, idx = jax.jit(lambda a: jax.lax.top_k(-a.T, 5))(jnp.asarray(x))
+    np.testing.assert_array_equal(
+        np.asarray(idx), np.argsort(x.T, axis=1, kind="stable")[:, :5]
+    )
+    print(
+        f"[kernels] matching 1024 slots: {n} reciprocal matches equal to "
+        f"numpy; bare top_k(-x.T) 1024x1024 equal to numpy; masked "
+        f"transposed top_k (jax {jax.__version__}): "
+        f"{transposed_topk_rows_wrong(s, t, sv, tv)} of {int(tv.sum())} "
+        "rows wrong (not used by the program)",
+        flush=True,
+    )
+
+
 def run_kernels():
     import jax
     import jax.numpy as jnp
@@ -299,6 +381,7 @@ def run_kernels():
             f"in {n_q} queries",
             flush=True,
         )
+    run_matching()
 
 
 # --------------------------------------------------------------- phase 3: pair
@@ -435,43 +518,35 @@ def run_mesh(devices):
                 flush=True,
             )
     a, b = out["mesh4"], out["single"]
-    # Sharding must not change a well-determined answer: every map that
-    # both runs place within 1 deg / 0.1 m of the truth agrees within
-    # 0.5 deg / 0.05 m. The rest are reported, not gated: on this fixture
-    # the graph solve is bistable on the GPU (identical single-device runs
-    # sometimes land maps 9-17 ~58 deg off, PERF.md), so whether a map is
-    # right flips with scatter-add order, not with the mesh. At least half
-    # the maps must be well-determined on both paths.
     t_a, t_b, g0 = np.linalg.inv(a[0]), np.linalg.inv(b[0]), np.linalg.inv(truths[0])
-    worst, reported, n_good = (0.0, 0.0), [], 0
+    rows = []
     for i in range(len(clouds)):
-        if not (np.asarray(a[i]).any() and np.asarray(b[i]).any()):
-            reported.append((i, "unregistered"))
+        registered = np.asarray(a[i]).any(), np.asarray(b[i]).any()
+        assert registered[0] == registered[1], (
+            f"map {i}: registered sharded {registered[0]}, single {registered[1]}"
+        )
+        if not registered[0]:
+            rows.append((i, None, None, None))
             continue
         truth = g0 @ truths[i]
-        good = all(
-            e[0] < 1.0 and e[1] < 0.1
-            for e in (pose_err(t_a @ a[i], truth), pose_err(t_b @ b[i], truth))
+        rows.append((
+            i, pose_err(t_a @ a[i], t_b @ b[i]),
+            pose_err(t_a @ a[i], truth), pose_err(t_b @ b[i], truth),
+        ))
+    for i, diff, e_a, e_b in rows:
+        print(
+            f"[mesh] map {i}: sharded vs single {_fmt(diff)}; vs truth "
+            f"sharded {_fmt(e_a)}, single {_fmt(e_b)}",
+            flush=True,
         )
-        err = pose_err(t_a @ a[i], t_b @ b[i])
-        if not good:
-            reported.append((i, tuple(round(e, 4) for e in err)))
-            continue
-        n_good += 1
-        assert err[0] < 0.5 and err[1] < 0.05, (
-            f"map {i}: sharded vs single-device pose differs by {err}"
-        )
-        worst = max(worst, err)
-    assert 2 * n_good >= len(clouds), (
-        f"only {n_good}/{len(clouds)} maps within 1 deg / 0.1 m on both paths"
-    )
-    print(
-        f"[mesh] {n_good}/{len(clouds)} maps within 1 deg / 0.1 m of truth on "
-        f"both paths; worst sharded-vs-single difference among them "
-        f"{worst[0]:.5f} deg {worst[1]:.6f} m; other maps (difference): "
-        f"{reported}",
-        flush=True,
-    )
+    # sharding distributes the same pairs; it must not move any map
+    off = [(i, _fmt(d)) for i, d, _, _ in rows
+           if d is not None and not (d[0] < 0.5 and d[1] < 0.05)]
+    assert not off, f"sharded vs single-device poses differ: {off}"
+
+
+def _fmt(err) -> str:
+    return "unregistered" if err is None else f"{err[0]:.4f} deg {err[1]:.5f} m"
 
 
 def run_staged(devices):
@@ -483,18 +558,30 @@ def run_staged(devices):
     from mapmerge_tpu.parallel.pair_shard import (
         extract_features_staged_parallel,
     )
-    from mapmerge_tpu.pipeline.features import extract_features_staged
+    from mapmerge_tpu.pipeline import features
 
+    extract_features_staged = features.extract_features_staged
     views, _ = town_views(4, view_resized_target=400_000, seed=11)
     cap = 1 << 20
     clouds = [PointCloud.from_arrays(x, r, capacity=cap) for x, r in views]
     params = big_params(cap)
     placement: list = []
+
+    def watched(cloud, params):
+        # where each cloud's staged features are computed
+        out = extract_features_staged(cloud, params)
+        placement.append(next(iter(out.keypoints.xyz.devices())))
+        return out
+
+    features.extract_features_staged = watched
     t0 = time.perf_counter()
-    feats = extract_features_staged_parallel(
-        clouds, params, make_mesh(devices), placement=placement
-    )
-    jax.block_until_ready(feats)
+    try:
+        feats = extract_features_staged_parallel(
+            clouds, params, make_mesh(devices)
+        )
+        jax.block_until_ready(feats)
+    finally:
+        features.extract_features_staged = extract_features_staged
     print(
         f"[staged] 4 clouds of {[len(v[0]) for v in views]} points at "
         f"capacity {cap}: {time.perf_counter() - t0:.3f} s",

@@ -7,7 +7,9 @@ good. This module is the improvement the batched pair stage makes natural:
 estimate_maps_transforms already registers ALL O(N^2) pairs, so after the
 MST seed we relax the full edge set with a damped Gauss-Newton on SE(3)
 (host-side numpy — the problem is 6N unknowns for N maps, microscopic next
-to the device stages).
+to the device stages). The batch pipeline first re-chooses the seed's
+spanning tree by edge consensus (consensus_seed), so one wrong but
+highly confident registration cannot misplace a block of maps.
 
 Conventions (match graph/merge_graph.py chaining):
   - global[i] maps map-i coordinates into the reference frame;
@@ -168,6 +170,155 @@ def _inv44(T: np.ndarray) -> np.ndarray:
     return out
 
 
+# ------------------------------------------------------- consensus seed
+#: an edge agrees with a set of global poses when its residual is within
+#: these bounds (a few hops of ICP-grade chain drift; wrong registrations
+#: of the all-pairs graphs sit at 5-180 deg)
+CONSENSUS_TOL_DEG = 5.0
+CONSENSUS_TOL_M = 0.5
+#: tree edges consensus_seed may swap out, one per round
+_MAX_SWAPS = 3
+
+
+def _usable_edges(estimates, active, confidence_threshold):
+    """Confident, successful edges between registered maps."""
+    return [
+        e
+        for e in estimates
+        if e.confidence >= confidence_threshold
+        and np.asarray(e.transform)[:3, :3].any()
+        and active[e.source_idx]
+        and active[e.target_idx]
+    ]
+
+
+def _spanning_tree(order, src, tgt, n, skip) -> list[int]:
+    """Kruskal over edge indices in `order` (descending confidence),
+    leaving out the indices in `skip`."""
+    parent = list(range(n))
+
+    def find(a):
+        while parent[a] != a:
+            parent[a] = parent[parent[a]]
+            a = parent[a]
+        return a
+
+    tree = []
+    for k in order:
+        if k in skip:
+            continue
+        a, b = find(src[k]), find(tgt[k])
+        if a != b:
+            parent[a] = b
+            tree.append(k)
+    return tree
+
+
+def _chain(tree, src, tgt, T, n, ref):
+    """Global poses chained over `tree` from `ref` (identity); None where
+    a node is not reached."""
+    adj: dict[int, list] = {i: [] for i in range(n)}
+    for k in tree:
+        # edge k: global[src] = global[tgt] @ T[k]
+        adj[tgt[k]].append((src[k], T[k]))
+        adj[src[k]].append((tgt[k], _inv44(T[k])))
+    G: list = [None] * n
+    G[ref] = np.eye(4)
+    queue = [ref]
+    while queue:
+        u = queue.pop(0)
+        for v, M in adj[u]:
+            if G[v] is None:
+                G[v] = G[u] @ M
+                queue.append(v)
+    return G
+
+
+def _agreement(G, src, tgt, T, w) -> float:
+    """Weight of the edges whose transform agrees with poses G."""
+    D = _inv44(T) @ _inv44(G[tgt]) @ G[src]
+    cos = np.clip((np.trace(D[:, :3, :3], axis1=-2, axis2=-1) - 1.0) * 0.5,
+                  -1.0, 1.0)
+    ok = (np.degrees(np.arccos(cos)) <= CONSENSUS_TOL_DEG) & (
+        np.linalg.norm(D[:, :3, 3], axis=-1) <= CONSENSUS_TOL_M
+    )
+    return float(np.sum(w[ok]))
+
+
+def consensus_seed(
+    estimates,
+    global_t: list[np.ndarray],
+    confidence_threshold: float = 0.0,
+) -> list[np.ndarray]:
+    """Re-choose the spanning tree the refinement starts from by how many
+    edges agree with it.
+
+    The max-confidence spanning tree trusts its edges blindly. On
+    all-pairs graphs of self-similar scenes one wrong registration can
+    carry more confidence than every correct edge that could replace it;
+    which part of the graph it then misplaces depends on near-ties
+    between correct edges, so float rounding flips the outcome between
+    runs, and the refinement can rarely pull a misplaced block back
+    through the seed gate. Here each tree edge in turn is left out, the
+    spanning tree is rebuilt without it, and the poses chained over it
+    are scored by the sqrt-confidence weight of ALL edges that agree with
+    them (CONSENSUS_TOL_DEG / _M). The best-scoring tree replaces the
+    seed when it beats it; up to _MAX_SWAPS such swaps.
+
+    Zero matrices (unregistered maps) pass through; the reference node
+    (identity seed) stays the reference. Graphs of fewer than 3 maps are
+    returned as they are.
+    """
+    n = len(global_t)
+    active = np.array([np.asarray(t)[:3, :3].any() for t in global_t])
+    if active.sum() < 3:
+        return global_t
+    ref = next(
+        (i for i in range(n) if active[i]
+         and np.allclose(global_t[i], np.eye(4), atol=1e-6)),
+        None,
+    )
+    edges = _usable_edges(estimates, active, confidence_threshold)
+    if ref is None or len(edges) <= int(active.sum()) - 1:
+        return global_t
+    src = np.asarray([e.source_idx for e in edges])
+    tgt = np.asarray([e.target_idx for e in edges])
+    T = np.stack([np.asarray(e.transform, np.float64) for e in edges])
+    w = np.sqrt(np.maximum([e.confidence for e in edges], _EPS))
+    order = sorted(range(len(edges)), key=lambda k: -edges[k].confidence)
+
+    def score(G):
+        if any(G[i] is None for i in range(n) if active[i]):
+            return -1.0  # a tree that no longer reaches every map
+        full = np.stack([g if g is not None else np.eye(4) for g in G])
+        return _agreement(full, src, tgt, T, w)
+
+    seed = [np.asarray(t, np.float64) if active[i] else None
+            for i, t in enumerate(global_t)]
+    best_score, best_g = score(seed), None
+    skip: set[int] = set()
+    tree = _spanning_tree(order, src, tgt, n, skip)
+    for _ in range(_MAX_SWAPS):
+        round_best = None
+        for k in tree:
+            cand = _spanning_tree(order, src, tgt, n, skip | {k})
+            G = _chain(cand, src, tgt, T, n, ref)
+            s = score(G)
+            if s > best_score and (round_best is None or s > round_best[0]):
+                round_best = (s, k, cand, G)
+        if round_best is None:
+            break
+        best_score, k, tree, best_g = round_best
+        skip.add(k)
+    if best_g is None:
+        return global_t
+    return [
+        best_g[i].astype(np.float32) if active[i]
+        else np.zeros((4, 4), np.float32)
+        for i in range(n)
+    ]
+
+
 # ------------------------------------------------------------ the refiner
 def refine_global_transforms(
     estimates,
@@ -224,14 +375,7 @@ def refine_global_transforms(
         return global_t  # MST on <3 nodes is already exact
 
     # edge set: confident, successful, both endpoints registered
-    edges = [
-        e
-        for e in estimates
-        if e.confidence >= confidence_threshold
-        and np.asarray(e.transform)[:3, :3].any()
-        and active[e.source_idx]
-        and active[e.target_idx]
-    ]
+    edges = _usable_edges(estimates, active, confidence_threshold)
 
     # seed-consistency gate: an edge that wildly disagrees with the MST
     # seed is almost surely a wrong registration that cleared the

@@ -15,6 +15,8 @@ exchanges only keypoint/descriptor blocks, not raw clouds.
 
 from __future__ import annotations
 
+import os
+
 import jax
 
 from mapmerge_tpu.parallel.mesh import make_mesh
@@ -24,20 +26,20 @@ def initialize(
     coordinator_address: str | None = None,
     num_processes: int | None = None,
     process_id: int | None = None,
-    processes_per_host: int = 1,
 ):
     """jax.distributed.initialize wrapper (no-op if already initialized or
     single-process). Safe to call unconditionally at program start.
 
-    Run one process per GPU. A JAX process reserves most of the memory of
-    every card it opens, so when `processes_per_host` > 1 processes share
-    a host, process `process_id` opens only card
-    `process_id % processes_per_host` (jax.distributed's
-    local_device_ids); with one process per host it drives every card of
-    its host."""
+    Run one process per GPU: a JAX process reserves most of the memory of
+    every card it opens. Under SLURM or Open MPI, jax.distributed detects
+    the cluster and gives each process its own card. Other launchers set
+    LOCAL_RANK (the process's rank on its host); the process then opens
+    only that card (jax.distributed's local_device_ids). With neither, a
+    process drives every card of its host — one process per host."""
     kwargs = {}
-    if processes_per_host > 1 and process_id is not None:
-        kwargs["local_device_ids"] = [process_id % processes_per_host]
+    local_rank = os.environ.get("LOCAL_RANK")
+    if local_rank is not None:
+        kwargs["local_device_ids"] = [int(local_rank)]
     try:
         jax.distributed.initialize(
             coordinator_address=coordinator_address,

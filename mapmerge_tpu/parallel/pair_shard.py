@@ -88,8 +88,7 @@ def estimate_pairs_sharded(
 
 
 def extract_features_staged_parallel(
-    clouds: list[PointCloud], params: MergeParams, mesh: Mesh,
-    placement: list | None = None,
+    clouds: list[PointCloud], params: MergeParams, mesh: Mesh
 ) -> CloudFeatures:
     """Big-cloud staged feature extraction, round-robined over the mesh's
     local devices (VERDICT r4 missing 2).
@@ -106,8 +105,6 @@ def extract_features_staged_parallel(
 
     Output: one (B, ...) CloudFeatures batch replicated over the mesh
     (the pair stage consumes features replicated, in_spec P()).
-    `placement`, when given, receives the device each cloud's features
-    were computed on.
     """
     from jax.sharding import NamedSharding
 
@@ -124,8 +121,6 @@ def extract_features_staged_parallel(
         dev = local[i % len(local)]
         padded = jax.device_put(pad_cloud(cloud, cap), dev)
         feats.append(extract_features_staged(padded, params))
-        if placement is not None:
-            placement.append(next(iter(feats[-1].keypoints.xyz.devices())))
     dev0 = local[0]
     stacked = jax.tree_util.tree_map(
         lambda *xs: jnp.stack([jax.device_put(x, dev0) for x in xs]), *feats

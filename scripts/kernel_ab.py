@@ -4,8 +4,9 @@ Times the bench.py pair, config2's 5-map fleet and the 20-map
 config4 fixture (one device) with the kernels off
 (plain jnp, as the CPU runs it) and on, in the order off, on, on, off, in
 one process on one card. Each block recompiles for its mode, warms up, and
-then times the merge: the pair as the median of 3 runs, the fleet once.
-Every run also prints its per-map pose errors against the truth.
+then times warm merges: 3 of the pair and of the 20-map fixture, 2 of the
+fleet, so every mode gets at least 4 warm runs over its two blocks. Every
+wall is printed, and every run's per-map pose errors against the truth.
 
 Usage, from the repo root: python scripts/kernel_ab.py [pair] [fleet] [config4]
 """
@@ -39,10 +40,10 @@ def _fixtures(which):
         views, truths = town_views(5, view_resized_target=500_000)
         cap = 1 << int(np.ceil(np.log2(max(len(v[0]) for v in views))))
         clouds = [PointCloud.from_arrays(x, r, capacity=cap) for x, r in views]
-        out["fleet"] = (clouds, truths, big_params(min(cap, 1 << 20)), 1)
+        out["fleet"] = (clouds, truths, big_params(min(cap, 1 << 20)), 2)
     if "config4" in which:
         clouds, truths, params, _ = config4_fixture()
-        out["config4"] = (clouds, truths, params, 1)
+        out["config4"] = (clouds, truths, params, 3)
     return out
 
 
@@ -82,9 +83,8 @@ def main(argv: list[str]) -> None:
                 walls.append(time.perf_counter() - t0)
                 errs.append(_errors(out, truths))
             print(
-                f"{name} {mode}: cold {cold:.3f} s, warm median "
-                f"{np.median(walls):.4f} s over {reps} "
-                f"(min {min(walls):.4f}, max {max(walls):.4f}); "
+                f"{name} {mode}: cold {cold:.3f} s, warm "
+                f"{[round(w, 4) for w in walls]} s; "
                 f"pose errors per run {errs}",
                 flush=True,
             )

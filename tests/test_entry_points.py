@@ -70,3 +70,32 @@ class TestCompileCache:
         assert path == os.path.join(os.path.realpath(ROOT), ".jax_cache")
         assert calls == [("jax_compilation_cache_dir", path)]
         assert compile_cache.enable_compile_cache() == path  # stable
+
+
+class TestMultihostCardChoice:
+    """multihost.initialize opens one card per process when the launcher
+    gives the process's local rank; jax.distributed itself is stubbed."""
+
+    @staticmethod
+    def _init(monkeypatch):
+        from mapmerge_tpu.parallel import multihost
+
+        calls = []
+        monkeypatch.setattr(
+            jax.distributed, "initialize", lambda **kw: calls.append(kw)
+        )
+        multihost.initialize("localhost:1234", num_processes=4, process_id=3)
+        assert len(calls) == 1
+        return calls[0]
+
+    def test_local_rank_picks_the_card(self, monkeypatch):
+        monkeypatch.setenv("LOCAL_RANK", "2")
+        kw = self._init(monkeypatch)
+        assert kw["local_device_ids"] == [2]
+        assert kw["process_id"] == 3 and kw["num_processes"] == 4
+
+    def test_no_local_rank_leaves_cards_to_jax(self, monkeypatch):
+        monkeypatch.delenv("LOCAL_RANK", raising=False)
+        kw = self._init(monkeypatch)
+        assert "local_device_ids" not in kw
+        assert kw["coordinator_address"] == "localhost:1234"

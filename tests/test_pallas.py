@@ -223,3 +223,9 @@ def test_compiled_kernels_match_plain_on_gpu(rng):
     ref_h, ref_t = spfh_tile_plain(*args, r2=0.64)
     np.testing.assert_allclose(np.asarray(got_t), np.asarray(ref_t))
     np.testing.assert_allclose(np.asarray(got_h), np.asarray(ref_h), atol=2e-3)
+    # descriptor matching at 1024 slots and a bare transposed top_k, as
+    # chip_smoke's phase 2 checks them (XLA's GPU top_k over a masked,
+    # transposed matrix has returned wrong indices)
+    import chip_smoke
+
+    chip_smoke.run_matching()

@@ -16,6 +16,7 @@ from mapmerge_tpu.graph.merge_graph import (
     compute_global_transforms,
 )
 from mapmerge_tpu.graph.pose_graph import (
+    consensus_seed,
     refine_global_transforms,
     se3_exp,
     se3_log,
@@ -197,3 +198,95 @@ class TestPipelineFlag:
 
         assert MergeParams().global_refinement is True
         assert MergeParams.strict_parity().global_refinement is False
+
+
+class TestConsensusSeed:
+    @staticmethod
+    def _max_err(tfs, truths):
+        base, tbase = np.linalg.inv(tfs[0]), np.linalg.inv(truths[0])
+        return max(
+            rot_err_deg(base @ t, tbase @ g) for t, g in zip(tfs, truths)
+        )
+
+    def _wrong_bridge_graph(self):
+        """All pairs of 8 ring poses; the (3, 4) registration is 20 deg
+        wrong and carries the highest confidence, so the max spanning
+        tree chains maps 4-7 through it."""
+        n = 8
+        truths = _ring_truth(n)
+        ests = []
+        for i in range(n - 1):
+            for j in range(i + 1, n):
+                if (i, j) == (3, 4):
+                    wrong = np.array([0.3, 0, 0, 0, 0, 0.35])
+                    ests.append(_edge(truths, j, i, wrong, conf=100.0))
+                else:
+                    ests.append(_edge(truths, j, i, None,
+                                      conf=50.0 if j == i + 1 else 10.0))
+        return truths, ests
+
+    def test_wrong_tree_edge_replaced(self):
+        truths, ests = self._wrong_bridge_graph()
+        seed = compute_global_transforms(ests, 0.0)
+        assert self._max_err(seed, truths) > 15.0
+        picked = consensus_seed(ests, seed, 0.0)
+        assert self._max_err(picked, truths) < 0.1  # float32 arccos floor
+        ref = next(i for i, t in enumerate(seed) if np.allclose(t, np.eye(4)))
+        np.testing.assert_allclose(picked[ref], np.eye(4), atol=1e-6)
+
+    def test_agreeing_seed_kept(self):
+        """Every edge already agrees with the MST seed: nothing to swap."""
+        truths = _ring_truth(6)
+        ests = [
+            _edge(truths, j, i, None, conf=10.0 + i + j)
+            for i in range(5) for j in range(i + 1, 6)
+        ]
+        seed = compute_global_transforms(ests, 0.0)
+        picked = consensus_seed(ests, seed, 0.0)
+        for a, b in zip(seed, picked):
+            np.testing.assert_array_equal(a, b)
+
+    def test_two_maps_and_unregistered_pass_through(self):
+        truths = _ring_truth(3)
+        ests = [_edge(truths, 1, 0, None, 10.0)]
+        seed = compute_global_transforms(ests, 0.0)
+        assert consensus_seed(ests, seed, 0.0) is seed
+        seed3 = seed + [np.zeros((4, 4), np.float32)]
+        assert consensus_seed(ests, seed3, 0.0) is seed3
+
+
+@pytest.mark.parametrize("graph", ["plain", "kernels"])
+def test_recorded_20_map_graph_solves(graph):
+    """Pair estimates of the 20-map mesh fixture (bench_fixtures.
+    config4_fixture) recorded on an H100, with the Pallas kernels off
+    (plain) and on. Only 56 of 190 pairs register correctly; the wrong
+    (17, 18) edge outranks the correct edges that join maps 9-17 and
+    18-19 to the rest, and the former seed + refinement left maps 9-18
+    22 deg off on the plain graph. Every map but 18 (one correct edge
+    against a dozen consistent wrong ones) must now land within 1 deg /
+    0.1 m of the truth; with the kernels' graph map 18 too."""
+    import os
+
+    from mapmerge_tpu.core.params import MergeParams
+    from mapmerge_tpu.pipeline.merging import _solve_graph
+
+    data = np.load(
+        os.path.join(os.path.dirname(__file__), "data",
+                     "config4_pair_estimates.npz")
+    )
+    ests = [
+        TransformEstimate(int(s), int(t), m, float(c), bool(a))
+        for s, t, m, c, a in zip(
+            *(data[graph + k] for k in ("_src", "_tgt", "_T", "_conf", "_amb"))
+        )
+    ]
+    truths = data["truths"]
+    out = _solve_graph(ests, MergeParams())
+    base, tbase = np.linalg.inv(out[0]), np.linalg.inv(truths[0])
+    off = [
+        i for i in range(len(truths))
+        if rot_err_deg(base @ out[i], tbase @ truths[i]) > 1.0
+        or np.linalg.norm((base @ out[i])[:3, 3] - (tbase @ truths[i])[:3, 3])
+        > 0.1
+    ]
+    assert off == ([18] if graph == "plain" else []), off
